@@ -1,8 +1,8 @@
 """CLI: python -m panagram_tpu_torch index samples.tsv -k 31 --prefix idx
 
 The ``index`` subcommand of panagram_tpu's CLI with the same flags, run on
-one device (``--device``, default cuda).  ``--device-dict`` and ``--mesh``
-are accepted only to say that this slice of the port does not build them.
+one device (``--device``, default cuda).  ``--mesh`` is accepted only to
+say that this slice of the port does not build it.
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ def _add_index(sub):
                    help="torch device for every device step (default cuda; "
                         "asking for cuda without a card raises)")
     p.add_argument("--device-dict", action="store_true",
-                   help="not in this slice of the port: raises")
+                   help="count and merge every genome on the device in one "
+                        "stage (no per-genome k-mer set files)")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
                    help="not in this slice of the port: raises")
     return p

@@ -1,6 +1,7 @@
 """Build the CUDA kernels (csrc/*.cu) into one shared library at first use.
 
-``nvcc`` compiles every source for Hopper (``sm_90a``) into
+One ``nvcc`` per source, all started together, compiles each for Hopper
+(``sm_90a``) into an object file; one more links them into
 ``_built/libpanagram_kernels.so`` beside this file; ``ops/kernels.py``
 loads it with ctypes.  The library is rebuilt when it is missing or older
 than any source.  An exclusive file lock serialises concurrent first uses
@@ -23,8 +24,9 @@ BUILD_DIR = os.path.join(_DIR, "_built")
 LIB_PATH = os.path.join(BUILD_DIR, "libpanagram_kernels.so")
 LOG_PATH = os.path.join(BUILD_DIR, "build.log")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v", "-c"]
 
 
 def sources() -> list[str]:
@@ -61,18 +63,44 @@ def build(force: bool = False) -> float:
         if not force and not _stale():
             return 0.0
         tmp = f"{LIB_PATH}.tmp.{os.getpid()}"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources()]
+        nvcc = nvcc_path()
+        objs = [os.path.join(BUILD_DIR, os.path.basename(src)[:-3]
+                             + f".{os.getpid()}.o") for src in sources()]
+        cmds = [[nvcc, *COMPILE_FLAGS, "-o", o, src]
+                for src, o in zip(sources(), objs)]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, timeout=900)
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT) for c in cmds]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=900)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        failed = [c for c, proc in zip(cmds, procs) if proc.returncode != 0]
+        log = [" ".join(c) + "\n" + o.decode("utf-8", "replace")
+               for c, o in zip(cmds, outs)]
+        if not failed:
+            link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+            res = subprocess.run(link, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, timeout=300)
+            log.append(" ".join(link) + "\n"
+                       + res.stdout.decode("utf-8", "replace"))
+            if res.returncode != 0:
+                failed = [link]
         seconds = time.perf_counter() - t0
-        out = res.stdout.decode("utf-8", "replace")
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
         with open(LOG_PATH, "w") as f:
-            f.write(" ".join(cmd) + "\n" + out)
-        if res.returncode != 0:
+            f.write("".join(log))
+        if failed:
             if os.path.exists(tmp):
                 os.remove(tmp)
-            raise RuntimeError(f"nvcc failed (rc={res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{out}")
+            raise RuntimeError(f"nvcc failed: {' '.join(failed[0])}\n"
+                               + "".join(log))
         os.replace(tmp, LIB_PATH)
         return seconds

@@ -12,7 +12,10 @@ rules:
 * int64 ``*`` wraps exactly as the u64 multiply does;
 * canonical keys are < 2^62 (k <= 31), so signed order equals unsigned
   order for them; only the all-ones SENTINEL differs (it is -1 and sorts
-  FIRST), so no code here relies on where the sentinel sorts;
+  FIRST under signed order);
+* mixed keys use all 64 bits, so they sort on ``flip64(x) = x ^ (1 << 63)``,
+  whose signed order is the unsigned order of x and which sends the
+  SENTINEL to INT64_MAX, the tail (``sort_u64``);
 * a u32 lives in an int32 tensor the same way; ``u32(x)`` widens it to an
   int64 holding the unsigned value.
 """
@@ -26,6 +29,8 @@ MAX_K = 31
 
 # the all-ones u64 as an int64 bit pattern
 SENTINEL = -1
+# bit 63 as an int64: x ^ SIGN64 maps unsigned order onto signed order
+SIGN64 = torch.iinfo(torch.int64).min
 
 # splitmix64 finalizer constants
 MIX_M1 = 0xBF58476D1CE4E5B9
@@ -74,6 +79,17 @@ def from_u64_np(a: np.ndarray, device) -> torch.Tensor:
     if not a.flags.writeable:       # e.g. np.load of an npz member
         a = a.copy()
     return torch.from_numpy(a.view(np.int64)).to(device)
+
+
+def flip64(x: torch.Tensor) -> torch.Tensor:
+    """int64 u64 patterns -> int64 whose signed order is the unsigned order
+    of x (the map is its own inverse)."""
+    return x ^ SIGN64
+
+
+def sort_u64(x: torch.Tensor) -> torch.Tensor:
+    """int64 u64 patterns sorted in unsigned order (SENTINELs last)."""
+    return flip64(torch.sort(flip64(x)).values)
 
 
 def mix64(x: torch.Tensor) -> torch.Tensor:

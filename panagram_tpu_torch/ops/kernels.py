@@ -1,7 +1,8 @@
-"""The four device kernels of the anchor chunk, with their plain versions.
+"""The device kernels of the port, with their plain versions.
 
-Each wrapper here replaces one Pallas TPU kernel of
-``panagram_tpu/ops/pallas_kernels.py``:
+Each wrapper here replaces one Pallas TPU kernel: the four of the anchor
+chunk in ``panagram_tpu/ops/pallas_kernels.py``, and the capability probe
+of ``tools/mosaic_probe.py``:
 
 =========================  ===============================  ==================
 wrapper                    TPU kernel                       CUDA source
@@ -10,6 +11,7 @@ pack_mix                   pack_mix_pallas                  csrc/pack_mix.cu
 probe_sorted               probe_sorted                     csrc/probe_sorted.cu
 fused_popcount_colsums     fused_popcount_colsums           csrc/popcount_colsums.cu
 masks_to_bytes             masks_to_bytes_pallas            csrc/masks_to_bytes.cu
+mosaic_probe               kern (tools/mosaic_probe.py)     csrc/mosaic_probe.cu
 =========================  ===============================  ==================
 
 On a CUDA tensor a wrapper launches its hand-written kernel (built by
@@ -29,11 +31,11 @@ import ctypes
 
 import torch
 
-from .codec import SENTINEL, mix64, split64, srl, u32
+from .codec import SENTINEL, mix64, split64, srl, to_i32, u32
 
 # kernel launches on the card since the last reset_launches(), by wrapper
 launches = {"pack_mix": 0, "probe_sorted": 0, "fused_popcount_colsums": 0,
-            "masks_to_bytes": 0}
+            "masks_to_bytes": 0, "mosaic_probe": 0}
 
 # grid cap of the column-sum kernel: blocks loop over rows beyond it
 _POPC_MAX_BLOCKS = 132 * 8
@@ -48,6 +50,7 @@ _SIGNATURES = {
                         _I32, _P, _P],
     "pg_popcount_colsums": [_P, _I64, _I32, _I32, _P, _P, _I32, _P],
     "pg_masks_to_bytes": [_P, _I64, _I32, _I32, _P, _P],
+    "pg_mosaic_probe": [_P, _P, _I64, _P, _P],
 }
 _lib_handle = None
 
@@ -317,3 +320,40 @@ def masks_to_bytes_plain(rows, nbytes: int) -> torch.Tensor:
         return torch.zeros(rows.shape[0], 0, dtype=torch.uint8,
                            device=rows.device)
     return torch.stack(cols, dim=1).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# mosaic_probe
+# ---------------------------------------------------------------------------
+
+def mosaic_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a, b int32 [n] (u32 bits) -> int32 [n, 4]: per element the u32
+    product a*b, the rolled a[(i+1) % n], the 16x32 product
+    (a >> 16) * (b & 0xFFFF), and a < b (unsigned) ? product : rolled."""
+    _need(a, torch.int32, 1, "mosaic_probe a")
+    _need(b, torch.int32, 1, "mosaic_probe b")
+    if a.shape != b.shape:
+        raise ValueError(f"mosaic_probe: a {tuple(a.shape)} != b {tuple(b.shape)}")
+    if not _on_card(a, b):
+        return mosaic_probe_plain(a, b)
+    dev = a.device
+    n = a.shape[0]
+    out = torch.empty(n, 4, dtype=torch.int32, device=dev)
+    if n:
+        rc = _lib().pg_mosaic_probe(a.data_ptr(), b.data_ptr(), n,
+                                    out.data_ptr(), _stream(dev))
+        _launched("mosaic_probe", rc, dev)
+    return out
+
+
+def mosaic_probe_plain(a, b) -> torch.Tensor:
+    """Plain torch version of mosaic_probe on int32 bit patterns: products
+    in int64 (which wraps like u64, so the low 32 bits are exact), the
+    unsigned compare as a signed one after XOR with 0x80000000."""
+    x, y = u32(a), u32(b)
+    prod = to_i32((x * y) & 0xFFFFFFFF)
+    rolled = torch.roll(a, -1)
+    hi16 = to_i32((x >> 16) * (y & 0xFFFF))
+    sign = torch.iinfo(torch.int32).min
+    cmp = torch.where((a ^ sign) < (b ^ sign), prod, rolled)
+    return torch.stack([prod, rolled, hi16, cmp], dim=1)

@@ -10,6 +10,17 @@ The table is stored as int32 [B, stride] (u32 bit patterns).  panagram_tpu
 packs adjacent buckets into 128-lane rows for the TPU's tiling; that form
 converts here with ``BucketedDict.from_jax_state``.
 
+Three routes lay a dictionary out (``BucketedDict.build_device`` picks one
+by the device's free memory, ``layout_route``):
+
+* single: one pass on the device (``layout_rows``: sort, bincount, cumsum,
+  one scatter per slot column);
+* chunked: for keys already sorted in mixed space, bucket-range passes
+  that write one preallocated table in place, so only one pass's
+  transients are alive at a time (``_layout_device_chunked``);
+* host: numpy (``BucketedDict.build``) and one upload, when the device
+  layout's transients do not fit beside the table.
+
 Two probes return the same rows:
 
 * ``bucket_query`` gathers each query's bucket row (plain torch; the fixup
@@ -26,12 +37,26 @@ Two probes return the same rows:
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import numpy as np
 import torch
 
 from . import kernels
-from .codec import MIX_M1, MIX_M2, mix64, u32  # noqa: F401  (mix64 re-exported)
+from .codec import (  # noqa: F401  (mix64 re-exported)
+    MIX_M1,
+    MIX_M2,
+    SENTINEL,
+    as_signed64,
+    flip64,
+    from_u64_np,
+    mix64,
+    srl,
+    u32,
+    u64_np,
+)
+
+logger = logging.getLogger(__name__)
 
 U64 = np.uint64
 _SENTINEL32 = np.uint32(0xFFFFFFFF)
@@ -41,6 +66,9 @@ TILE_Q = 1024
 # device memory kept free beside the table for the anchor chunk's buffers
 # (a 2^22-position chunk's sort, probe and the gather fallback's row copy)
 ANCHOR_RESERVE_BYTES = 3 << 30
+# sorted rows per pass of the chunked device layout (its transients scale
+# with this bound; panagram_tpu's PANAGRAM_TPU_LAYOUT_PIECE_ROWS default)
+LAYOUT_PIECE_ROWS = 1 << 24
 
 
 def mix64_np(x: np.ndarray) -> np.ndarray:
@@ -68,21 +96,79 @@ def table_geometry(D: int, W: int, mean_load: int | None = None):
     return nbits, cap, stride
 
 
-def check_hbm_budget(table_bytes: int, device, what: str = "dictionary"):
-    """Raise before allocating when a table of table_bytes plus
-    ANCHOR_RESERVE_BYTES of chunk buffers exceeds the free memory of the
-    CUDA `device` (torch.cuda.mem_get_info).  A CPU device is not checked."""
+def layout_bytes(D: int, W: int, mode: str,
+                 piece_rows: int = LAYOUT_PIECE_ROWS) -> int:
+    """Device memory a layout of D keys x W mask words needs beside its
+    table: the byte model of panagram_tpu.ops.lookup.check_hbm_budget.
+
+    * "sort": unsorted input; keys, masks and the grouping sort's copies,
+      ~4 x (8 + 4W) B/key;
+    * "sorted": input sorted in mixed space, no grouping sort; the inputs
+      plus the slot/base transients, (8 + 4W + 12) B/key;
+    * "chunked": the inputs plus one pass's transients, bounded by the
+      piece size.
+    (The host layout needs nothing beside the table on the device.)"""
+    per_key = 8 + 4 * W
+    if mode == "sort":
+        return 4 * per_key * D
+    if mode == "sorted":
+        return (per_key + 12) * D
+    if mode == "chunked":
+        return per_key * D + 40 * piece_rows
+    raise ValueError(f"layout mode {mode!r}")
+
+
+def _free_bytes(device, free):
+    """The free figure to check against: `free` when given, else the free
+    memory of a CUDA `device` (torch.cuda.mem_get_info), else None (a CPU
+    device is not checked)."""
+    if free is not None:
+        return int(free)
     device = torch.device(device)
     if device.type != "cuda":
-        return
-    free, total = torch.cuda.mem_get_info(device)
-    need = table_bytes + ANCHOR_RESERVE_BYTES
-    if need > free:
+        return None
+    return torch.cuda.mem_get_info(device)[0]
+
+
+def check_hbm_budget(table_bytes: int, device, what: str = "dictionary",
+                     layout: int = 0, free: int | None = None):
+    """Raise before allocating when a table of table_bytes, `layout` bytes
+    of layout transients (layout_bytes) and ANCHOR_RESERVE_BYTES of chunk
+    buffers exceed the free memory of `device`: `free` bytes when given,
+    else torch.cuda.mem_get_info of a CUDA device.  A CPU device without a
+    `free` figure is not checked."""
+    avail = _free_bytes(device, free)
+    need = table_bytes + layout + ANCHOR_RESERVE_BYTES
+    if avail is not None and need > avail:
         raise RuntimeError(
             f"{what}: needs ~{need / 1e9:.1f} GB of device memory (bucket "
-            f"table {table_bytes / 1e9:.1f} GB + "
-            f"{ANCHOR_RESERVE_BYTES / 1e9:.1f} GB of chunk buffers) but "
-            f"{free / 1e9:.1f} of {total / 1e9:.1f} GB are free on {device}")
+            f"table {table_bytes / 1e9:.1f} GB + layout {layout / 1e9:.1f} "
+            f"GB + {ANCHOR_RESERVE_BYTES / 1e9:.1f} GB of chunk buffers) but "
+            f"{avail / 1e9:.1f} GB are free on {device}")
+
+
+def layout_route(D: int, W: int, device, sorted_input: bool,
+                 free: int | None = None,
+                 piece_rows: int = LAYOUT_PIECE_ROWS) -> str:
+    """The route of BucketedDict.build_device for D keys x W words:
+    "single" when the one-pass layout's transients fit beside the table,
+    else "chunked" for sorted input whose bounded passes fit, else "host";
+    raises when the table alone does not fit.  `free` as in
+    check_hbm_budget.  (panagram_tpu also takes the chunked route for any
+    table of 2^31 or more u32, because its scatter indices are int32;
+    torch indexes with int64, so size alone decides nothing here.)"""
+    nbits, _, stride = table_geometry(D, W)
+    table = (1 << nbits) * stride * 4
+    avail = _free_bytes(device, free)
+    if avail is None:
+        return "single"
+    room = avail - table - ANCHOR_RESERVE_BYTES
+    if layout_bytes(D, W, "sorted" if sorted_input else "sort") <= room:
+        return "single"
+    if sorted_input and layout_bytes(D, W, "chunked", piece_rows) <= room:
+        return "chunked"
+    check_hbm_budget(table, device, "bucketed dict (host layout)", free=free)
+    return "host"
 
 
 @dataclasses.dataclass
@@ -90,7 +176,8 @@ class BucketedDict:
     """Single-probe bucketed hash layout of a pan-kmer dictionary.
 
     `table` is numpy uint32 [2^nbits, stride] after build(), or an int32
-    tensor of the same shape and bits after to(device)."""
+    tensor of the same shape and bits after to(device) or
+    build_device()."""
 
     table: object
     nbits: int
@@ -149,6 +236,61 @@ class BucketedDict:
         return table, 0
 
     @classmethod
+    def build_device(cls, keys, masks, ngenomes: int, k: int, device,
+                     mixed: bool = False, count: int | None = None,
+                     sorted_input: bool = False, free: int | None = None,
+                     piece_rows: int = LAYOUT_PIECE_ROWS) -> "BucketedDict":
+        """Device layout with the result of panagram_tpu's build_device:
+        the table is laid out on `device` and stays there.
+
+        keys: int64 tensor of u64 patterns or numpy uint64, canonical or,
+        with mixed=True, splitmix64-mixed; SENTINEL rows are padding and
+        dropped.  masks int32 tensor / numpy uint32 [len(keys), W].
+        `count` is the number of real keys (for sizing; default all).
+        sorted_input=True says the keys are sorted in unsigned mixed order
+        (requires mixed=True): the layout skips its grouping sort and may
+        take the chunked route.  `free` and `piece_rows` as in
+        layout_route.  An overflowing bucket retries with one more bucket
+        bit, up to 8 times."""
+        if sorted_input and not mixed:
+            raise ValueError("sorted_input requires mixed-space keys")
+        device = torch.device(device)
+        if isinstance(keys, np.ndarray):
+            keys = from_u64_np(keys, device)
+        if isinstance(masks, np.ndarray):
+            masks = torch.from_numpy(
+                np.ascontiguousarray(masks, np.uint32).view(np.int32))
+        keys = keys.to(device)
+        W = masks.shape[1] if masks.dim() == 2 else 1
+        masks = masks.reshape(keys.shape[0], W).to(device)
+        D = max(int(count) if count is not None else keys.shape[0], 1)
+
+        route = layout_route(D, W, device, sorted_input, free, piece_rows)
+        if route == "host":
+            logger.warning("device layout of %s keys does not fit beside "
+                           "the table; laying it out on the host", f"{D:,}")
+            n = keys.shape[0] if count is None else int(count)
+            return cls.build(u64_np(keys[:n]),
+                             masks[:n].cpu().numpy().view(np.uint32),
+                             ngenomes, k, mixed=mixed).to(device)
+        nbits, cap, stride = table_geometry(D, W)
+        for _ in range(8):
+            if route == "chunked":
+                table, overflow = _layout_device_chunked(
+                    keys, masks, nbits, cap, stride, piece_rows)
+            else:
+                table, overflow = _layout_device(keys, masks, nbits, cap,
+                                                 stride, mixed, sorted_input)
+            if int(overflow) == 0:
+                return cls(table=table.view(1 << nbits, stride), nbits=nbits,
+                           cap=cap, stride=stride, ngenomes=ngenomes, k=k,
+                           nwords=W)
+            del table
+            nbits += 1  # halve the mean load and retry
+        raise RuntimeError("bucketed dict: bucket overflow persisted after "
+                           "8 doublings — pathological key distribution")
+
+    @classmethod
     def from_jax_state(cls, table_np: np.ndarray, nbits: int, cap: int,
                        stride: int, ngenomes: int, k: int,
                        nwords: int) -> "BucketedDict":
@@ -172,6 +314,164 @@ class BucketedDict:
             check_hbm_budget(t.nbytes, device, what="bucketed dict")
             t = torch.from_numpy(np.array(t, np.uint32).view(np.int32))
         return dataclasses.replace(self, table=t.to(device))
+
+
+def _new_table(n_buckets: int, stride: int, slot_w: int, device):
+    """A flat int32 table of n_buckets * stride all-ones words, plus slot_w
+    words of drop area at the end for the rows a scatter does not store."""
+    return torch.full((n_buckets * stride + slot_w,), -1, dtype=torch.int32,
+                      device=device)
+
+
+def _slot_base(bs: torch.Tensor, slot: torch.Tensor, ok: torch.Tensor,
+               stride: int, slot_w: int, drop: int) -> torch.Tensor:
+    """Flat table offset of each row's slot, bs * stride + slot * slot_w,
+    or `drop` where not ok.  Computed in place in bs and slot, which are
+    consumed: at 1e8 keys every int64 [D] transient is 0.8 GB."""
+    base = bs.mul_(stride).add_(slot.mul_(slot_w))
+    return base.masked_fill_(~ok, drop)
+
+
+def _scatter_columns(table: torch.Tensor, base: torch.Tensor,
+                     ms: torch.Tensor, mk: torch.Tensor):
+    """Write each row's slot, (hi, lo) of its mixed key ms and its mask
+    words mk, at flat offset base of `table`; rows to drop point at the
+    drop area.  One index_put_ per slot column, into a view of the table
+    shifted by the column, so no [D] index is built per column.
+
+    torch indexes with int64, so this one flat path covers tables of 2^31
+    u32 and more; panagram_tpu scatters those through a [rows, 128] view
+    (lookup.py's _FLAT_SCATTER_MAX) because its indices are int32 and its
+    TPU tiles arrays at (8, 128)."""
+    for c in range(2 + mk.shape[1]):
+        if c == 0:
+            col = (ms >> 32).to(torch.int32)
+        elif c == 1:
+            col = ms.to(torch.int32)   # int64 -> int32 keeps the low word
+        else:
+            col = mk[:, c - 2]
+        table[c:].index_put_((base,), col)
+
+
+def layout_rows(m: torch.Tensor, masks: torch.Tensor, bucket, n_buckets: int,
+                cap: int, stride: int, bucket_in_key: bool = False,
+                pre_sorted: bool = False):
+    """Core of the device bucket layout (panagram_tpu.ops.lookup.layout_rows).
+
+    m int64 [D] mixed keys (SENTINEL rows are padding and dropped); masks
+    int32 [D, W]; bucket int [D], the destination bucket of each row.
+    bucket_in_key=True says the bucket is the top bits of m (`bucket` is
+    then unused): sorting by m alone gives (bucket, key) order, and
+    pre_sorted=True says m is already sorted in unsigned order, which
+    skips that sort.  Rows are grouped by (bucket, key) in unsigned order;
+    keys are distinct, so every row's slot is fixed.
+
+    Returns (table int32 flat [n_buckets * stride], overflow: 0-d tensor
+    counting the rows past a bucket's capacity, which are dropped)."""
+    D, W = masks.shape
+    if bucket_in_key:
+        nbits = (n_buckets - 1).bit_length()
+        if pre_sorted:
+            ms, mk = m, masks
+        else:
+            order = torch.sort(flip64(m)).indices
+            ms, mk = m[order], masks[order]
+            del order
+        bs = torch.where(ms != SENTINEL, srl(ms, 64 - nbits), n_buckets)
+    else:
+        b = torch.where(m != SENTINEL, bucket.to(torch.int64), n_buckets)
+        order = torch.sort(flip64(m)).indices
+        order = order[torch.sort(b[order], stable=True).indices]
+        ms, mk, bs = m[order], masks[order], b[order]
+        del order, b
+    counts = torch.bincount(bs, minlength=n_buckets + 1)
+    overflow = torch.clamp(counts[:n_buckets] - cap, min=0).sum()
+    slot = torch.arange(D, device=m.device)
+    slot -= (torch.cumsum(counts, 0) - counts)[bs]
+    del counts
+    ok = (bs < n_buckets) & (slot < cap)
+    table = _new_table(n_buckets, stride, 2 + W, m.device)
+    base = _slot_base(bs, slot, ok, stride, 2 + W, n_buckets * stride)
+    del bs, slot, ok
+    _scatter_columns(table, base, ms, mk)
+    return table[:n_buckets * stride], overflow
+
+
+def _layout_device(keys: torch.Tensor, masks: torch.Tensor, nbits: int,
+                   cap: int, stride: int, mixed: bool = True,
+                   pre_sorted: bool = False):
+    """Single-pass device layout; canonical keys (mixed=False) are mixed
+    here, SENTINELs kept."""
+    m = keys if mixed else torch.where(keys == SENTINEL, keys, mix64(keys))
+    return layout_rows(m, masks, None, 1 << nbits, cap, stride,
+                       bucket_in_key=True, pre_sorted=pre_sorted)
+
+
+def chunked_layout_pieces(N: int, nbits: int,
+                          piece_rows: int = LAYOUT_PIECE_ROWS) -> int:
+    """Pass count of the chunked device layout: the smallest power of two
+    (at least 2) keeping each pass under piece_rows of N rows (padding
+    included, as panagram_tpu counts), clamped so that every pass covers
+    at least one bucket."""
+    P = 2
+    while -(-N // P) > piece_rows:
+        P *= 2
+    return min(P, 1 << nbits)
+
+
+def _piece_bounds(keys: torch.Tensor, P: int) -> list[int]:
+    """Row bounds of the P passes over keys sorted in unsigned mixed order
+    (SENTINEL padding at the tail): pass p covers mixed values
+    [p, p+1) * 2^64/P, i.e. buckets [p, p+1) * B/P for any nbits >=
+    log2(P), and the last bound is the first SENTINEL row."""
+    log2p = P.bit_length() - 1
+    vals = [as_signed64(p << (64 - log2p)) for p in range(1, P)] + [SENTINEL]
+    vals = torch.tensor(vals, dtype=torch.int64, device=keys.device)
+    return [0] + torch.searchsorted(flip64(keys), flip64(vals)).tolist()
+
+
+def _layout_piece(table: torch.Tensor, keys: torch.Tensor,
+                  masks: torch.Tensor, lo: int, hi: int, base_bucket: int,
+                  n_piece: int, nbits: int, cap: int, stride: int):
+    """One pass of the chunked layout: the sorted rows [lo, hi), which are
+    all the rows of buckets [base_bucket, base_bucket + n_piece), go into
+    the flat `table` in place.  Returns the pass's overflow (0-d)."""
+    m, mk = keys[lo:hi], masks[lo:hi]
+    bs = srl(m, 64 - nbits)
+    local = bs - base_bucket
+    counts = torch.bincount(local, minlength=n_piece)
+    slot = torch.arange(hi - lo, device=m.device)
+    slot -= (torch.cumsum(counts, 0) - counts)[local]
+    del local
+    slot_w = 2 + mk.shape[1]
+    base = _slot_base(bs, slot, slot < cap, stride, slot_w,
+                      table.shape[0] - slot_w)
+    del slot
+    _scatter_columns(table, base, m, mk)
+    return torch.clamp(counts - cap, min=0).sum()
+
+
+def _layout_device_chunked(keys: torch.Tensor, masks: torch.Tensor,
+                           nbits: int, cap: int, stride: int,
+                           piece_rows: int = LAYOUT_PIECE_ROWS):
+    """Chunked device layout of keys sorted in unsigned mixed order with
+    SENTINEL padding at the tail: the table is allocated once and each of
+    P bucket-range passes writes its rows into it in place (panagram_tpu
+    donated the table to each pass for the same effect).  The device is
+    synchronised after every pass, so only one pass's transients are ever
+    alive.  Returns (table int32 flat [B * stride], overflow int)."""
+    B = 1 << nbits
+    P = chunked_layout_pieces(keys.shape[0], nbits, piece_rows)
+    bounds = _piece_bounds(keys, P)
+    table = _new_table(B, stride, 2 + masks.shape[1], keys.device)
+    overflow = 0
+    for p in range(P):
+        ov = _layout_piece(table, keys, masks, bounds[p], bounds[p + 1],
+                           p * (B // P), B // P, nbits, cap, stride)
+        if keys.device.type == "cuda":
+            torch.cuda.synchronize(keys.device)
+        overflow += int(ov)
+    return table[:B * stride], overflow
 
 
 def bucket_row(hi: torch.Tensor, nbits: int) -> torch.Tensor:

@@ -2,9 +2,13 @@
 
   count[g]   per-genome distinct canonical k-mer set  -> kmc/<g>.kmers.npz
   dict       merged presence-mask dictionary          -> kmc/pandict.npz
-  layout     bucket table, built on the host, uploaded once for all anchors
+  layout     bucket table, laid out on the device once for all anchors
   anchor[g]  per-anchor bitmaps + summaries           -> anchor/<g>/*
   dist       exact-Jaccard genome distances           -> genome_dist.tsv
+
+With device_dict=True (``--device-dict``) one stage replaces count and
+dict: every genome streams through the device-resident builder
+(ops/devdict.py), and pandict.npz holds mixed keys.
 
 A stage is skipped when its outputs exist and are no older than its inputs,
 and each stage that runs writes its wall time to logs/<stage>.benchmark.txt
@@ -25,6 +29,7 @@ from .distances import write_genome_dist
 from .index import Index
 from .io.fasta import iter_fasta, seq_to_codes
 from .ops.count import distinct_kmers_chunked
+from .ops.devdict import DeviceDictBuilder
 from .ops.dictionary import PanKmerDict, build_dictionary
 from .ops.lookup import BucketedDict
 
@@ -36,7 +41,6 @@ _LOG_DATEFMT = "%Y-%m-%d %H:%M:%S"
 _LATER = {
     "gff": "GFF annotation (gene/anno tabix, run_annotate)",
     "fastq": "FASTQ read-set counting (counted_kmers_chunked)",
-    "device_dict": "--device-dict (the device-resident dictionary)",
     "mesh": "--mesh (parallel/ on torch.distributed)",
     "cores": "--cores > 1 (threaded anchoring of several genomes)",
 }
@@ -103,6 +107,74 @@ def count_genome(index: Index, name: str, device: torch.device,
     return out
 
 
+def _sequence_size_estimate(path) -> int:
+    """Decompressed byte size of a (possibly gzipped) sequence file: for
+    .gz the ISIZE trailer (uncompressed length mod 2^32), or 4x the
+    compressed size when that is implausibly small (a >4 GB genome wrapped
+    around, or a multi-member file)."""
+    raw = os.path.getsize(path)
+    if not str(path).endswith(".gz"):
+        return raw
+    try:
+        with open(path, "rb") as f:
+            f.seek(-4, os.SEEK_END)
+            isize = int.from_bytes(f.read(4), "little")
+        if isize >= raw // 2:
+            return isize
+    except OSError:
+        pass
+    return raw * 4
+
+
+def build_dict_device(index: Index, device: torch.device, force=False) -> str:
+    """Stage dict of --device-dict, in place of count and dict: every
+    genome streams through the device-resident builder; no per-genome set
+    files, and resume granularity is the whole dictionary."""
+    out = index.dict_fname
+    fastas = [index.genomes[n]._fasta_path for n in index.genome_names]
+    if not force and _outputs_fresh([out], fastas):
+        return out
+    t0 = time.time()
+    os.makedirs(index.kmer_dir, exist_ok=True)
+    # capacity hint: the largest genome plus headroom (the union of related
+    # genomes is far below their sum; the builder grows past the hint)
+    sizes = [_sequence_size_estimate(f) for f in fastas
+             if f and os.path.exists(f)]
+    hint = int(max(sizes) * 1.5) if sizes else None
+    b = DeviceDictBuilder(index.k, index.ngenomes, device, capacity_hint=hint)
+    phase = {"io": 0.0, "device": 0.0}
+    for gid, name in enumerate(index.genome_names):
+        g = index.genomes[name]
+        if g.fasta is None:
+            continue
+        for _, seq in iter_fasta(g._fasta_path):
+            tp = time.perf_counter()
+            codes = seq_to_codes(seq)
+            phase["io"] += time.perf_counter() - tp
+            tp = time.perf_counter()
+            b.add_sequence(gid, codes)
+            phase["device"] += time.perf_counter() - tp
+        tp = time.perf_counter()
+        n_keys = b.synced_count()    # flushes the genome's buffered merge
+        phase["device"] += time.perf_counter() - tp
+        logger.info(f"device dict: merged {name} ({n_keys} keys)")
+    tp = time.perf_counter()
+    d = b.to_host()
+    d.save(out)
+    save_s = time.perf_counter() - tp
+    w = b.walls
+    logger.info(
+        f"dict phases: io={phase['io']:.1f}s device={phase['device']:.1f}s "
+        f"to_host+save={save_s:.1f}s | pack={w['pack']:.1f}s "
+        f"chunk_disp={w['chunk_dispatch']:.1f}s "
+        f"union_disp={w['union_dispatch']:.1f}s "
+        f"merge_disp={w['merge_dispatch']:.1f}s sync={w['sync']:.1f}s "
+        f"(first {w['first_sync']:.1f}s) over {w['flushes']} flushes")
+    _benchmark(index.prefix, "dict", t0)
+    logger.info(f"device dictionary: {len(d)} keys x {d.nwords} words")
+    return out
+
+
 def build_dict_stage(index: Index, device: torch.device, force=False) -> str:
     """Stage dict: merge the per-genome sets; genome id = samples.tsv row,
     and a genome without sequence contributes an empty set."""
@@ -131,12 +203,16 @@ def build_dict_stage(index: Index, device: torch.device, force=False) -> str:
 
 def layout_stage(index: Index, pan_dict: PanKmerDict,
                  device: torch.device) -> BucketedDict:
-    """Lay the dictionary out as the bucket table (numpy, on the host) and
-    upload it once; every anchor genome probes the same device table."""
+    """Lay the dictionary out as the bucket table on the device, once;
+    every anchor genome probes the same table.  Keys and masks go up, the
+    table is built there (BucketedDict.build_device); a mixed dictionary
+    (--device-dict) is already sorted in mixed space, so its layout skips
+    the grouping sort."""
     t0 = time.time()
-    bd = BucketedDict.build(pan_dict.keys, pan_dict.masks, index.ngenomes,
-                            index.k, mixed=pan_dict.key_space == "mixed")
-    bd = bd.to(device)
+    mixed = pan_dict.key_space == "mixed"
+    bd = BucketedDict.build_device(pan_dict.keys, pan_dict.masks,
+                                   index.ngenomes, index.k, device,
+                                   mixed=mixed, sorted_input=mixed)
     _sync(device)
     _benchmark(index.prefix, "layout", t0)
     logger.info(f"bucket table: 2^{bd.nbits} buckets x {bd.stride} u32")
@@ -194,9 +270,8 @@ def build_index(samples_or_dir: str, prefix=None, force=False,
                 device="cuda", device_dict=False, mesh_devices=None,
                 **params) -> Index:
     """Run the build DAG on one device.  `samples_or_dir` is a samples.tsv
-    (fresh build) or an initialized index dir (resume)."""
-    if device_dict:
-        raise not_in_slice("device_dict")
+    (fresh build) or an initialized index dir (resume).  device_dict=True
+    counts and merges on the device in one stage (build_dict_device)."""
     if mesh_devices:
         raise not_in_slice("mesh")
     dev = resolve_device(device)
@@ -208,10 +283,13 @@ def build_index(samples_or_dir: str, prefix=None, force=False,
     check_slice(index)
     os.makedirs(os.path.join(index.prefix, "logs"), exist_ok=True)
 
-    for name in index.genome_names:
-        if index.genomes[name].fasta is not None:
-            count_genome(index, name, dev, force=force)
-    build_dict_stage(index, dev, force=force)
+    if device_dict:
+        build_dict_device(index, dev, force=force)
+    else:
+        for name in index.genome_names:
+            if index.genomes[name].fasta is not None:
+                count_genome(index, name, dev, force=force)
+        build_dict_stage(index, dev, force=force)
     pan_dict = PanKmerDict.load(index.dict_fname)
 
     bucketed = None

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from panagram_tpu_torch.ops import kernels
+from panagram_tpu_torch.io.fasta import seq_to_codes
+from panagram_tpu_torch.ops import count, devdict, kernels, lookup
 from panagram_tpu_torch.ops.anchor import anchor_chunk
 from panagram_tpu_torch.ops.codec import pack_bases_np, pack_kmers, u64_np
 from panagram_tpu_torch.ops.lookup import (
@@ -25,6 +26,7 @@ from panagram_tpu_torch.ops.lookup import (
     plan_probe,
 )
 from panagram_tpu_torch.ops.ref_impl import anchor_np, masks_to_bytes_np
+from panagram_tpu_torch.tools import mosaic_probe
 
 pytestmark = pytest.mark.gpu
 
@@ -132,3 +134,116 @@ def test_anchor_chunk_matches_oracle(cuda):
         got = bucket_query_sorted_pre(hi, lo, bd.table, bd.nbits, bd.cap,
                                       bd.nwords, 1 << 16, span=span)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1024, 777, 1 << 20])
+def test_mosaic_probe_kernel(cuda, n):
+    a, b = mosaic_probe.probe_inputs(n)
+    ta = torch.from_numpy(a.view(np.int32))
+    tb = torch.from_numpy(b.view(np.int32))
+    before = kernels.launches["mosaic_probe"]
+    got = kernels.mosaic_probe(ta.to(cuda), tb.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.launches["mosaic_probe"] == before + 1
+    assert torch.equal(got.cpu(), kernels.mosaic_probe_plain(ta, tb))
+
+
+def test_mosaic_probe_tool(cuda, capsys):
+    before = kernels.launches["mosaic_probe"]
+    assert mosaic_probe.main([]) == 0
+    assert kernels.launches["mosaic_probe"] == before + 1
+    checks = [line for line in capsys.readouterr().out.splitlines()
+              if "ok:" in line or "exact:" in line]
+    assert len(checks) == 4 and all(c.endswith("True") for c in checks)
+
+
+def test_count_memory_bounded_by_chunk(cuda):
+    """Counting keeps at most SPILL_CHUNKS chunk sets on the card: the peak
+    of a 32-chunk sequence is that of an 8-chunk one, and within a few
+    times the peak of counting one chunk.  The result equals the CPU's."""
+    chunk = 1 << 16
+    rng = np.random.default_rng(16)
+
+    def peak(nchunks):
+        codes = rng.integers(0, 4, nchunks * chunk + K - 1).astype(np.uint8)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = count.distinct_kmers_chunked([codes], K, cuda, chunk=chunk)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base, codes, got
+
+    one, _, _ = peak(1)
+    short, _, _ = peak(8)
+    long_, codes, got = peak(32)
+    assert long_ <= 1.25 * short
+    assert long_ < 8 * one
+    want = count.distinct_kmers_chunked([codes], K, "cpu", chunk=chunk)
+    assert np.array_equal(got, want)
+
+
+def _mixed_sorted(rng, n, ngenomes):
+    keys = np.unique(rng.integers(0, 1 << 62, n, dtype=np.uint64))
+    W = (ngenomes + 31) // 32
+    masks = rng.integers(1, 1 << 32, (len(keys), W), dtype=np.uint64)
+    masks[:, -1] &= np.uint64((1 << (ngenomes - 32 * (W - 1))) - 1)
+    masks[:, -1] |= np.uint64(1)
+    m = lookup.mix64_np(keys)
+    order = np.argsort(m)
+    pad = np.full(1 << int(np.ceil(np.log2(len(keys) + 1))),
+                  np.uint64(0xFFFFFFFFFFFFFFFF))
+    pad[:len(keys)] = m[order]
+    pm = np.zeros((len(pad), W), np.uint32)
+    pm[:len(keys)] = masks[order]
+    return keys, masks.astype(np.uint32), pad, pm
+
+
+@pytest.mark.parametrize("ngenomes", [30, 100])
+def test_build_device_routes_on_card(cuda, ngenomes):
+    """The device layout on the card equals the CPU's (which equals
+    panagram_tpu's, tests/test_torch_layout.py): canonical input, and sorted
+    mixed input through the single, chunked and host routes."""
+    rng = np.random.default_rng(ngenomes)
+    keys, masks, mp, maskp = _mixed_sorted(rng, 200_000, ngenomes)
+    want = BucketedDict.build_device(keys, masks, ngenomes, K, "cpu")
+    got = BucketedDict.build_device(keys, masks, ngenomes, K, cuda)
+    assert torch.equal(got.table.cpu(), want.table)
+
+    D, W = len(keys), maskp.shape[1]
+    want = BucketedDict.build_device(mp, maskp, ngenomes, K, "cpu", mixed=True,
+                                     count=D, sorted_input=True)
+    nbits, _, stride = lookup.table_geometry(D, W)
+    fixed = (1 << nbits) * stride * 4 + lookup.ANCHOR_RESERVE_BYTES
+    for free, route in (
+            (None, "single"),
+            (fixed + lookup.layout_bytes(D, W, "chunked", 1 << 14), "chunked"),
+            (fixed, "host")):
+        free = free if free is not None else torch.cuda.mem_get_info()[0]
+        assert lookup.layout_route(D, W, cuda, True, free, 1 << 14) == route
+        got = BucketedDict.build_device(mp, maskp, ngenomes, K, cuda,
+                                        mixed=True, count=D,
+                                        sorted_input=True, free=free,
+                                        piece_rows=1 << 14)
+        assert got.table.device.type == "cuda"
+        assert torch.equal(got.table.cpu(), want.table), route
+
+
+def test_device_dict_on_card(cuda):
+    """The device dictionary builder on the card runs pack_mix and equals
+    the CPU builder, through to_host and through its bucket table."""
+    rng = np.random.default_rng(3)
+    bases = np.array(list("ACGTN"))
+    seqs = ["".join(rng.choice(bases, 20_000, p=[0.2475] * 4 + [0.01]))
+            for _ in range(40)]
+    builders = [devdict.DeviceDictBuilder(K, 40, dev, chunk=4096)
+                for dev in ("cpu", cuda)]
+    before = kernels.launches["pack_mix"]
+    for b in builders:
+        for gid, s in enumerate(seqs):
+            b.add_sequence(gid, seq_to_codes(s))
+    assert kernels.launches["pack_mix"] - before == 40 * 5
+    want, got = (b.to_host() for b in builders)
+    assert np.array_equal(got.keys, want.keys)
+    assert np.array_equal(got.masks, want.masks)
+    tw, tg = (b.bucketed().table for b in builders)
+    assert tg.device.type == "cuda" and torch.equal(tg.cpu(), tw)

@@ -1,9 +1,9 @@
 """The port's index build against panagram_tpu's, byte for byte, on the CPU.
 
 The 3-genome, 2-chromosome fixture of tests/test_index.py (k=11, an N
-run in g3) without its GFF goes through both packages' build_index; every
-file the port writes must equal panagram_tpu's.  Exact comparison
-throughout (tolerance 0).
+run in g3) without its GFF goes through both packages' build_index, on the
+default route and on --device-dict; every file the port writes must equal
+panagram_tpu's.  Exact comparison throughout (tolerance 0).
 """
 
 import filecmp
@@ -16,8 +16,10 @@ import pytest
 import torch
 
 from panagram_tpu.index import Index as JaxIndex
+from panagram_tpu.ops import devdict as jax_devdict
 from panagram_tpu.pipeline import build_index as jax_build_index
 from panagram_tpu_torch.__main__ import main as port_main
+from panagram_tpu_torch.ops.lookup import mix64_np
 from panagram_tpu_torch.pipeline import build_index
 from tests.conftest import random_seq
 
@@ -82,6 +84,35 @@ def assert_same_tree(port_dir, jax_dir, skip=()):
     return n
 
 
+class _SmallChunkBuilder(jax_devdict.DeviceDictBuilder):
+    """panagram_tpu's device dictionary builder with 4096-position chunks
+    instead of 2^22: the dictionary does not depend on the chunk size, and
+    the small chunk keeps its CPU run to seconds."""
+
+    def __init__(self, k, ngenomes, chunk=1 << 12, capacity_hint=None):
+        super().__init__(k, ngenomes, chunk, capacity_hint)
+
+
+def jax_build_device_dict(samples, prefix, **params):
+    """panagram_tpu's build_index(device_dict=True) with _SmallChunkBuilder."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_devdict, "DeviceDictBuilder", _SmallChunkBuilder)
+        jax_build_index(str(samples), prefix=str(prefix), device_dict=True,
+                        **params)
+
+
+def assert_same_trees(port_dir, jax_dir):
+    """assert_same_tree, and the two trees hold the same number of files
+    (the port does not write chrom_umaps.csv / genome_umap.csv)."""
+    n = assert_same_tree(str(port_dir), str(jax_dir))
+    skip = {"chrom_umaps.csv", "genome_umap.csv"}
+    m = sum(1 for root, _, files in os.walk(jax_dir)
+            if os.path.relpath(root, jax_dir).split(os.sep)[0] != "logs"
+            for f in files if f not in skip)
+    assert n == m
+    return n
+
+
 @pytest.fixture(scope="module")
 def built(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_index")
@@ -143,8 +174,7 @@ def test_cli_prepare_and_refusals(built, tmp_path, capsys):
     assert "Prepared index" in capsys.readouterr().out
 
     base = ["index", str(samples), "-k", str(K), "--device", "cpu"]
-    for extra, word in ((["--device-dict"], "device-dict"),
-                        (["--mesh", "2"], "mesh"),
+    for extra, word in ((["--mesh", "2"], "mesh"),
                         (["--cores", "2"], "cores")):
         with pytest.raises(NotImplementedError, match=word):
             port_main(base + ["--prefix", str(tmp_path / word)] + extra)
@@ -163,16 +193,48 @@ def test_cli_prepare_and_refusals(built, tmp_path, capsys):
             build_index(str(samples), prefix=str(tmp_path / "c"), device="cuda")
 
 
-def test_runs_without_jax_pandas_yaml_sklearn(built, tmp_path):
-    """The package imports and builds the fixture with jax, pandas, yaml
-    and sklearn made unimportable."""
+@pytest.fixture(scope="module")
+def built_dd(built):
+    """The fixture through --device-dict: panagram_tpu's build_index and
+    the port's CLI."""
+    tmp = built["tmp"]
+    jax_build_device_dict(built["samples"], tmp / "jax_dd", k=K)
+    port_main(["index", str(built["samples"]), "-k", str(K), "--prefix",
+               str(tmp / "port_dd"), "--device", "cpu", "--device-dict"])
+    return tmp
+
+
+def test_device_dict_outputs_byte_identical(built_dd):
+    tmp = built_dd
+    n = assert_same_trees(tmp / "port_dd", tmp / "jax_dd")
+    assert n == 3 + 1 + 7 * 3           # no per-genome k-mer set files
+    assert not any(f.endswith(".kmers.npz")
+                   for f in os.listdir(tmp / "port_dd" / "kmc"))
+    pan = np.load(tmp / "port_dd" / "kmc" / "pandict.npz")
+    assert str(pan["key_space"]) == "mixed"
+    # the same dictionary as the default route's, in mixed space
+    canon = np.load(tmp / "port" / "kmc" / "pandict.npz")
+    mixed = mix64_np(canon["keys"])
+    order = np.argsort(mixed)
+    assert np.array_equal(pan["keys"], mixed[order])
+    assert np.array_equal(pan["masks"], canon["masks"][order])
+    for g in ("g1", "g2", "g3"):
+        for f in ("bitmap.1.gz", "bitsum.bins.tsv", "total_paircounts.csv"):
+            assert filecmp.cmp(tmp / "port_dd" / "anchor" / g / f,
+                               tmp / "port" / "anchor" / g / f, shallow=False)
+
+
+def test_runs_without_jax_pandas_yaml_sklearn(built, built_dd, tmp_path):
+    """The package imports and builds the fixture, on both routes, with
+    jax, pandas, yaml and sklearn made unimportable."""
+    args = ["index", str(built["samples"]), "-k", str(K), "--device", "cpu"]
     code = (
         "import sys\n"
         "for m in ('jax', 'pandas', 'yaml', 'sklearn'): sys.modules[m] = None\n"
         "import torch; torch.set_num_threads(2)\n"
         "from panagram_tpu_torch.__main__ import main\n"
-        f"main(['index', {str(built['samples'])!r}, '-k', '{K}', '--prefix', "
-        f"{str(tmp_path / 'iso')!r}, '--device', 'cpu'])\n"
+        f"main({args + ['--prefix', str(tmp_path / 'iso')]!r})\n"
+        f"main({args + ['--prefix', str(tmp_path / 'iso_dd'), '--device-dict']!r})\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'pandas', 'yaml', 'sklearn', 'panagram_tpu') "
         "and sys.modules[m] is not None]\n"
@@ -184,3 +246,4 @@ def test_runs_without_jax_pandas_yaml_sklearn(built, tmp_path):
     # absolute FASTA paths in samples.tsv: the isolated build's files equal
     # the in-process ones, whatever the working directory
     assert_same_tree(str(tmp_path / "iso"), str(built["tmp"] / "port"))
+    assert_same_tree(str(tmp_path / "iso_dd"), str(built_dd / "port_dd"))

@@ -1,10 +1,13 @@
-"""The plain torch versions of the four kernels against the Pallas kernels.
+"""The plain torch versions of the kernels against the Pallas kernels.
 
 Each Pallas kernel runs in interpret mode on the CPU, as tests/test_pallas.py
 runs it; the port's wrappers, given CPU tensors, run their plain versions.
 Inputs come from numpy with a fixed seed, and everything is integer, so
 every comparison is exact (tolerance 0).
 """
+
+import importlib.util
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +22,9 @@ from panagram_tpu.ops.ref_impl import genome_kmer_set
 from panagram_tpu_torch.ops import kernels
 from panagram_tpu_torch.ops.codec import pack_bases_np
 from panagram_tpu_torch.ops.lookup import BucketedDict, mix64_np
+from panagram_tpu_torch.tools import mosaic_probe as port_mosaic
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 torch.set_num_threads(2)
 
@@ -151,3 +157,58 @@ def test_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError):
         kernels.fused_popcount_colsums(
             torch.zeros(8, 1, dtype=torch.int32, device="meta"), 4)
+    a = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.mosaic_probe(a.to(torch.int64), a)             # dtype
+    with pytest.raises(ValueError):
+        kernels.mosaic_probe(a, a[:4])                         # shapes
+    with pytest.raises(ValueError):
+        kernels.mosaic_probe(a.to("meta"), a.to("meta"))       # device
+
+
+def _mosaic_want(a, b):
+    """What tools/mosaic_probe.py checks its kernel's output against."""
+    want_prod = (a.astype(np.uint64) * b.astype(np.uint64)).astype(np.uint32)
+    want_roll = np.roll(a, -1)
+    want_hi16 = ((a >> 16).astype(np.uint64) * (b & 0xFFFF)).astype(np.uint32)
+    want_cmp = np.where(a < b, want_prod, want_roll)
+    return np.stack([want_prod, want_roll, want_hi16, want_cmp], axis=1)
+
+
+@pytest.mark.parametrize("n", [1024, 1, 777, 1 << 16])
+def test_mosaic_probe_plain_matches_numpy(n):
+    """The tool's own inputs (default_rng(0)), other sizes, and the edge
+    values of the unsigned compare and the products."""
+    a, b = port_mosaic.probe_inputs(n)
+    if n == 1 << 16:
+        edge = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF],
+                        np.uint32)
+        a[:25] = np.repeat(edge, 5)
+        b[:25] = np.tile(edge, 5)
+    got = kernels.mosaic_probe(torch.from_numpy(a.view(np.int32)),
+                               torch.from_numpy(b.view(np.int32)))
+    assert got.dtype == torch.int32 and got.shape == (n, 4)
+    assert np.array_equal(got.numpy().view(np.uint32), _mosaic_want(a, b))
+    assert all(np.array_equal(w, _mosaic_want(a, b)[:, i])
+               for i, w in enumerate(port_mosaic.expected(a, b)))
+
+
+def test_mosaic_probe_tools_print_the_four_checks(capsys):
+    """panagram_tpu's tools/mosaic_probe.py runs its Pallas kernel in
+    interpret mode here and prints four True lines; the port's tool refuses
+    a CPU device, since its kernel runs only on a CUDA card."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_mosaic_probe", os.path.join(REPO, "tools", "mosaic_probe.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    tool.main()
+    lines = capsys.readouterr().out.splitlines()
+    checks = [line for line in lines if "ok:" in line or "exact:" in line]
+    assert [c.split(":")[0].strip() for c in checks] == \
+        ["u32 mul exact", "roll ok", "16x32 mul ok", "select ok"]
+    assert all(c.split(":")[1].strip() == "True" for c in checks)
+
+    kernels.reset_launches()
+    with pytest.raises(SystemExit, match="not a CUDA device"):
+        port_mosaic.main(["--device", "cpu"])
+    assert kernels.launches["mosaic_probe"] == 0
