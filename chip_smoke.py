@@ -23,11 +23,24 @@
    pandict.npz must be the slice's dictionary mixed (keys in unsigned mixed
    order), its anchor files byte-identical to the slice's, and pack_mix
    must have run once per sequence chunk in its dict stage.
-7. Layout phase: ~1e8 mixed keys drawn on the card (W=1) laid out by
+7. The full-index phase: the same genomes plus a FASTQ read set `reads`
+   (150-bp reads at 10x of g3, 0.5% substitutions, seed 0) and GFF3 files
+   for g0-g2 (a gene every ~5 kbp with one mRNA and four exons, a
+   repeat_region every 50 kbp), indexed through the CLI with --cores 3 and
+   again with --cores 1.  The two trees must be identical (anno_types.txt
+   as a set, config.yaml apart), `reads` counted on the card must equal
+   the plain CPU count, g0's gene histograms in its first 2^17 positions
+   must equal the numpy oracle's, every gene's must equal the bitmap's,
+   both UMAP CSVs must hold one finite row per 100-kbp bin, and
+   ``annotate g1 <gff>`` through the CLI must count its genes from the
+   bitmap with the fused_popcount_colsums kernel.  Prints the FASTQ count
+   wall and reads/s, the anchor stage's wall at --cores 3 and 1, the
+   annotate wall and the embedding walls.
+8. Layout phase: ~1e8 mixed keys drawn on the card (W=1) laid out by
    BucketedDict.build_device, the single-pass route and the chunked route;
    the three tables must be equal and a sample of keys must find their
    masks.
-8. Prints the kernels JSON line, the card line, and last
+9. Prints the kernels JSON line, the card line, and last
    {"ok": true, "device": {...}}.  Any failed check raises, so the script
    exits non-zero without that line; so does a machine without CUDA.
 """
@@ -53,6 +66,9 @@ K = 31
 CHUNK = 1 << 22
 GENOMES, GENOME_BP, ANCHORS = 30, 5_000_000, ("g0", "g1", "g2")
 ORACLE_POSITIONS = 1 << 17
+READ_LEN, READ_COVERAGE, READ_SUBST = 150, 10, 0.005
+GENE_EVERY, REPEAT_EVERY = 5_000, 50_000
+UMAP_BIN = 100_000
 DICT_KEYS = 13_000_000    # kernel-phase table: the slice's dictionary size
 LAYOUT_KEYS = 100_000_000  # layout phase: a ~1e8-key W=1 table
 MOSAIC_SIZES = (1024, 1 << 24)
@@ -247,7 +263,7 @@ def make_genomes(work: str) -> dict:
         pos = rng.choice(GENOME_BP, GENOME_BP // 1000, replace=False)
         mut[pos] = rng.integers(0, 4, len(pos), dtype=np.uint8)
         write_fasta(os.path.join(work, "fa", f"g{g}.fa"), "chr1", mut)
-        if f"g{g}" in ANCHORS:
+        if f"g{g}" in ANCHORS + ("g3",):
             seqs[f"g{g}"] = mut
     with open(os.path.join(work, "samples.tsv"), "w") as f:
         f.write("name\tfasta\n")
@@ -284,9 +300,9 @@ def count_peaks(pipeline, peaks: list):
     return real, counted
 
 
-def slice_phase(work: str, card: str) -> dict:
+def slice_phase(work: str, card: str) -> tuple[dict, dict]:
     """Drive the index build through the CLI and check what it wrote.
-    Returns the launch counts of the run."""
+    Returns the launch counts of the run and the generated sequences."""
     from panagram_tpu_torch import pipeline
     from panagram_tpu_torch.__main__ import main
     from panagram_tpu_torch.io.bgzf import BgzfReader, decompress_file
@@ -388,7 +404,7 @@ def slice_phase(work: str, card: str) -> dict:
           f"({len(ANCHORS)} x {nk} positions in {anchor_s:.3f} s of anchor "
           f"stages); peak device memory after the count stage "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return launches
+    return launches, seqs
 
 
 class _Lines(logging.Handler):
@@ -469,6 +485,278 @@ def device_dict_phase(work: str, card: str) -> dict:
         print(f"  {s:18s}  {walls[s]:9.3f} s", flush=True)
     phases = [m for m in lines.lines if m.startswith("dict phases:")]
     print(f"  builder: {phases[-1]}", flush=True)
+    return launches
+
+
+def write_reads(path: str, genome: np.ndarray) -> np.ndarray:
+    """READ_LEN-bp reads at READ_COVERAGE x of `genome`, uniform starts,
+    READ_SUBST substitutions (seed 0), as uncompressed FASTQ.  Returns the
+    reads' codes [n, READ_LEN]."""
+    rng = np.random.default_rng(0)
+    n = READ_COVERAGE * len(genome) // READ_LEN
+    starts = rng.integers(0, len(genome) - READ_LEN + 1, n)
+    reads = np.lib.stride_tricks.sliding_window_view(genome, READ_LEN)[starts]
+    sub = rng.random(reads.shape) < READ_SUBST
+    reads[sub] = (reads[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    seqs = np.frombuffer(b"ACGT", np.uint8)[reads]
+    qual = b"I" * READ_LEN
+    with open(path, "wb") as f:
+        f.write(b"".join(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i].tobytes(), qual)
+                         for i in range(n)))
+    return reads
+
+
+def write_gff(path: str, seqid: str, size: int, rng, genes_only=False):
+    """GFF3 with a gene every ~GENE_EVERY bp (1-3 kbp, one mRNA, four
+    exons) and a 300-bp repeat_region every REPEAT_EVERY bp.  Returns the
+    genes' (start, end) as written (1-based, used as 0-based slices)."""
+    lines, genes = ["##gff-version 3"], []
+    for i, s0 in enumerate(range(1, size - 5_000, GENE_EVERY)):
+        start = s0 + int(rng.integers(0, 1_000))
+        end = start + int(rng.integers(1_000, 3_000))
+        genes.append((start, end))
+        lines.append(f"{seqid}\tsim\tgene\t{start}\t{end}\t.\t+\t.\t"
+                     f"ID=gene{i};Name=G{i}")
+        if genes_only:
+            continue
+        lines.append(f"{seqid}\tsim\tmRNA\t{start}\t{end}\t.\t+\t.\t"
+                     f"ID=mrna{i};Parent=gene{i}")
+        edges = np.linspace(start, end, 9).astype(int)
+        for e in range(4):
+            lines.append(f"{seqid}\tsim\texon\t{edges[2 * e]}\t"
+                         f"{edges[2 * e + 1]}\t.\t+\t.\t"
+                         f"ID=exon{i}_{e};Parent=mrna{i}")
+    if not genes_only:
+        for r in range(1, size, REPEAT_EVERY):
+            lines.append(f"{seqid}\tsim\trepeat_region\t{r}\t{r + 299}\t.\t"
+                         f"+\t.\tID=rep{r}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return genes
+
+
+def read_bed(path: str) -> list[list[str]]:
+    from panagram_tpu_torch.io.bgzf import decompress_file
+
+    return [line.split("\t")
+            for line in decompress_file(path).decode().splitlines()]
+
+
+def bitmap_popc(d: str, nbytes: int) -> np.ndarray:
+    from panagram_tpu_torch.io.bgzf import decompress_file
+
+    by = np.frombuffer(decompress_file(os.path.join(d, "bitmap.1.gz")),
+                       np.uint8).reshape(-1, nbytes)
+    return np.unpackbits(by, axis=1, bitorder="little").sum(
+        axis=1, dtype=np.int64)
+
+
+def check_gene_rows(rows, popc, N: int, what: str, oracle_limit=None):
+    """Each gene row's genomes-present counts (columns 1 and N) against
+    np.bincount of popc over its span (GFF coordinates as 0-based
+    slices); genes past popc must hold zeros.  Returns rows checked."""
+    checked = 0
+    for r in rows:
+        s, e = int(r[1]), int(r[2])
+        if oracle_limit is not None and e > oracle_limit:
+            continue
+        want = (np.bincount(popc[s:e], minlength=N + 1) if e <= len(popc)
+                else np.zeros(N + 1, np.int64))
+        if (int(r[4]), int(r[5])) != (int(want[1]), int(want[N])):
+            raise AssertionError(f"{what}: gene {r[:4]} holds {r[4:]}, the "
+                                 f"bitmap gives {want[1]}, {want[N]}")
+        checked += 1
+    return checked
+
+
+def same_trees(a: str, b: str) -> int:
+    """Every file of tree a but logs/ and config.yaml equals b's;
+    anno_types.txt as a set of lines.  Returns the files compared."""
+    n = 0
+    for root, _, files in os.walk(a):
+        rel = os.path.relpath(root, a)
+        if rel.split(os.sep)[0] == "logs":
+            continue
+        for fn in files:
+            if fn == "config.yaml":
+                continue
+            p, q = os.path.join(root, fn), os.path.join(b, rel, fn)
+            if fn == "anno_types.txt":
+                with open(p) as f, open(q) as g:
+                    same = sorted(f.read().split()) == sorted(g.read().split())
+            else:
+                same = filecmp.cmp(p, q, shallow=False)
+            if not same:
+                raise AssertionError(f"--cores 3 and --cores 1 differ: {rel}/{fn}")
+            n += 1
+    return n
+
+
+def full_index_phase(work: str, seqs: dict, card: str, dev) -> dict:
+    """The whole index command: a FASTQ read set, GFF annotation, --cores
+    3 against --cores 1, annotate, the embeddings.  Returns the launch
+    counts of the --cores 3 build."""
+    from panagram_tpu_torch import pipeline
+    from panagram_tpu_torch.__main__ import main
+    from panagram_tpu_torch.io.fasta import seq_to_codes
+    from panagram_tpu_torch.ops import count, kernels
+    from panagram_tpu_torch.ops.dictionary import PanKmerDict
+    from panagram_tpu_torch.ops.ref_impl import anchor_np, popcount_np
+
+    t0 = time.perf_counter()
+    reads = write_reads(os.path.join(work, "fa", "reads.fq"), seqs["g3"])
+    rng = np.random.default_rng(0)
+    genes = {a: write_gff(os.path.join(work, "fa", f"{a}.gff"), "chr1",
+                          GENOME_BP, rng) for a in ANCHORS}
+    with open(os.path.join(work, "samples_full.tsv"), "w") as f:
+        f.write("name\tfasta\tgff\n")
+        for g in range(GENOMES):
+            gff = f"fa/g{g}.gff" if f"g{g}" in ANCHORS else ""
+            f.write(f"g{g}\tfa/g{g}.fa\t{gff}\n")
+        f.write("reads\tfa/reads.fq\t\n")
+    print(f"full-index inputs: {len(reads)} reads of {READ_LEN} bp "
+          f"({reads.size / 1e6:.1f} Mbp), "
+          f"{sum(len(v) for v in genes.values())} genes in 3 GFFs, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    N = GENOMES + 1
+    nbytes = (N + 7) // 8
+    real_stage = pipeline.anchor_stage
+    lines = _Lines()
+    pkg = logging.getLogger("panagram_tpu_torch")
+    out, spans = {}, {}
+    for cores in (3, 1):
+        prefix = os.path.join(work, f"idx_full_c{cores}")
+        spans[cores] = []
+
+        def timed_stage(*args, _s=spans[cores], **kwargs):
+            t = time.perf_counter()
+            real_stage(*args, **kwargs)
+            _s.append((t, time.perf_counter()))
+
+        pipeline.anchor_stage = timed_stage
+        pkg.addHandler(lines)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            main(["index", os.path.join(work, "samples_full.tsv"), "-k",
+                  str(K), "--prefix", prefix, "--cores", str(cores),
+                  "--anchor-genomes", *ANCHORS, "--device", str(dev)])
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            pipeline.anchor_stage = real_stage
+            pkg.removeHandler(lines)
+        out[cores] = (prefix, time.perf_counter() - t0, dict(kernels.launches))
+    finish = [float(m.split("finish=")[1].rstrip("s")) for m in lines.lines
+              if m.startswith("anchor phases:")]
+
+    (p3, wall3, launches), (p1, wall1, launches1) = out[3], out[1]
+    n = same_trees(p3, p1)
+    print(f"full index: --cores 3 and --cores 1 trees identical ({n} files)",
+          flush=True)
+    if os.path.exists(os.path.join(p3, "anchor", "reads")):
+        raise AssertionError("the FASTQ read set was anchored")
+    got = np.load(os.path.join(p3, "kmc", "reads.kmers.npz"))["kmers"]
+    t0 = time.perf_counter()
+    want = count.counted_kmers_chunked(iter(reads), K, "cpu",
+                                       min_count=pipeline.FASTQ_MIN_COUNT)
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(got, want):
+        raise AssertionError(f"reads.kmers.npz ({len(got)} keys) differs from "
+                             f"the plain CPU count ({len(want)} keys)")
+    print(f"reads: {len(got)} k-mers seen twice or more, equal to the plain "
+          f"CPU count ({cpu_s:.1f} s on the host)", flush=True)
+
+    pan = PanKmerDict.load(os.path.join(p3, "kmc", "pandict.npz"))
+    rows = anchor_np(seqs["g0"][:ORACLE_POSITIONS + K - 1], K, pan.keys,
+                     pan.masks)
+    d0 = os.path.join(p3, "anchor", "g0")
+    n_or = check_gene_rows(read_bed(os.path.join(d0, "gene.bed.gz")),
+                           popcount_np(rows), N, "g0 oracle",
+                           oracle_limit=ORACLE_POSITIONS)
+    if n_or == 0:
+        raise AssertionError("no gene of g0 inside the oracle window")
+    for a in ANCHORS:
+        d = os.path.join(p3, "anchor", a)
+        bed = read_bed(os.path.join(d, "gene.bed.gz"))
+        if len(bed) != len(genes[a]):
+            raise AssertionError(f"{a}: {len(bed)} genes in gene.bed.gz")
+        popc = bitmap_popc(d, nbytes)
+        check_gene_rows(bed, popc, N, a)
+        with open(os.path.join(d, "bitsum.genes.tsv")) as f:
+            tot = [int(x) for x in f.read().splitlines()[1].split("\t")[1:]]
+        want_tot = sum(np.bincount(popc[s:e], minlength=N + 1)
+                       for s, e in genes[a] if e <= len(popc))
+        if tot != [int(x) for x in want_tot]:
+            raise AssertionError(f"{a}: bitsum.genes.tsv disagrees with the "
+                                 "bitmap")
+        nbins = -(-(GENOME_BP - K + 1) // UMAP_BIN)
+        for fn in ("chrom_umaps.csv", "genome_umap.csv"):
+            with open(os.path.join(d, fn)) as f:
+                body = [r.split(",") for r in f.read().splitlines()[1:]]
+            xy = np.array([[float(r[3]), float(r[4])] for r in body])
+            if len(body) != nbins or not np.isfinite(xy).all() \
+                    or not xy.any():
+                raise AssertionError(f"{a}/{fn}: {len(body)} rows for "
+                                     f"{nbins} bins, or not finite")
+    print(f"genes: g0's {n_or} genes in the first {ORACLE_POSITIONS} positions "
+          "match the numpy oracle; every gene of g0-g2 matches its bitmap; "
+          f"UMAP CSVs hold {nbins} finite rows each", flush=True)
+
+    new_gff = os.path.join(work, "fa", "new_g1.gff")
+    new = write_gff(new_gff, "chr1", GENOME_BP, np.random.default_rng(1),
+                    genes_only=True)
+    with open(new_gff, "a") as f:
+        f.write(f"chr1\tsim\tgene\t{GENOME_BP - 100}\t{GENOME_BP + 100}\t.\t"
+                "+\t.\tID=pastend\n")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    main(["annotate", p3, "g1", new_gff, "--device", str(dev)])
+    annotate_s = time.perf_counter() - t0
+    ann_launches = kernels.launches["fused_popcount_colsums"]
+    d1 = os.path.join(p3, "anchor", "g1")
+    bed = read_bed(os.path.join(d1, "gene.bed.gz"))
+    if len(bed) != len(new) + 1:
+        raise AssertionError(f"annotate: {len(bed)} genes for {len(new) + 1}")
+    check_gene_rows(bed, bitmap_popc(d1, nbytes), N, "annotate g1")
+    print(f"annotate g1: {len(bed)} genes match popcounts of its bitmap",
+          flush=True)
+
+    span3 = max(e for _, e in spans[3]) - min(s for s, _ in spans[3])
+    span1 = max(e for _, e in spans[1]) - min(s for s, _ in spans[1])
+    walls = stage_walls(p3)
+    print(f"full-index walls [{card}]:", flush=True)
+    print(f"  build --cores 3 / --cores 1: {wall3:.3f} / {wall1:.3f} s",
+          flush=True)
+    print(f"  FASTQ count stage: {walls['kmc.reads']:.3f} s, "
+          f"{len(reads) / walls['kmc.reads']:.4g} reads/s "
+          f"({reads.size / walls['kmc.reads']:.4g} bases/s)", flush=True)
+    print(f"  anchor stage (3 anchors, first start to last end): "
+          f"--cores 3 {span3:.3f} s, --cores 1 {span1:.3f} s", flush=True)
+    print(f"  annotate g1 ({len(bed)} genes): {annotate_s:.3f} s", flush=True)
+    print("  embedding (finish) per anchor: --cores 3 "
+          + " ".join(f"{x:.3f}" for x in finish[:3]) + " s, --cores 1 "
+          + " ".join(f"{x:.3f}" for x in finish[3:]) + " s", flush=True)
+    walls1 = stage_walls(p1)
+    for st in ["dict", "layout"] + [f"anchor.{a}" for a in ANCHORS] \
+            + ["mash.triangle"]:
+        print(f"  --cores 1 {st:18s}  {walls1[st]:9.3f} s", flush=True)
+    for a in ANCHORS:
+        with open(os.path.join(p1, "logs", f"anchor.{a}.log.txt")) as f:
+            phases = [line for line in f if "anchor phases:" in line]
+        print(f"  --cores 1 {a} {phases[-1].split('] ', 1)[1].strip()}",
+              flush=True)
+
+    for name in ANCHOR_KERNELS:
+        if launches[name] <= 0 or launches1[name] != launches[name]:
+            raise AssertionError(f"full index: kernel {name} launched "
+                                 f"{launches[name]} / {launches1[name]} times "
+                                 "(--cores 3 / 1)")
+    if ann_launches <= 0:
+        raise AssertionError("annotate did not launch fused_popcount_colsums")
+    print(f"full index launches (--cores 3): {launches}; annotate: "
+          f"fused_popcount_colsums x{ann_launches}", flush=True)
     return launches
 
 
@@ -570,8 +858,9 @@ def main():
     mosaic, mosaic_launches = mosaic_phase(dev)
 
     with tempfile.TemporaryDirectory() as work:
-        launches = slice_phase(work, card)
+        launches, seqs = slice_phase(work, card)
         device_dict_phase(work, card)
+        full_index_phase(work, seqs, card, dev)
     launches["mosaic_probe"] = mosaic_launches
     layout_phase(dev, card)
 

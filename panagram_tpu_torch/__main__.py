@@ -1,8 +1,9 @@
 """CLI: python -m panagram_tpu_torch index samples.tsv -k 31 --prefix idx
+     python -m panagram_tpu_torch annotate idx genome genes.gff
 
-The ``index`` subcommand of panagram_tpu's CLI with the same flags, run on
-one device (``--device``, default cuda).  ``--mesh`` is accepted only to
-say that this slice of the port does not build it.
+The ``index`` and ``annotate`` subcommands of panagram_tpu's CLI with the
+same flags, run on one device (``--device``, default cuda).  ``--mesh`` is
+accepted only to say that the port does not build it yet.
 """
 
 from __future__ import annotations
@@ -35,7 +36,21 @@ def _add_index(sub):
                    help="count and merge every genome on the device in one "
                         "stage (no per-genome k-mer set files)")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="not in this slice of the port: raises")
+                   help="not ported yet: raises")
+    return p
+
+
+def _add_annotate(sub):
+    p = sub.add_parser("annotate",
+                       help="(Re-)annotate an anchored genome from a GFF")
+    p.add_argument("index_dir")
+    p.add_argument("genome")
+    p.add_argument("gff_file",
+                   help="GFF3 file (a relative path is relative to index_dir)")
+    p.add_argument("--nogene", action="store_true",
+                   help="write the annotation tables only, no gene counts")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the popcount kernel (default cuda)")
     return p
 
 
@@ -65,6 +80,15 @@ def _run_index(args):
     print(f"Index built at {idx.prefix}")
 
 
+def _run_annotate(args):
+    from .index import Index
+    from .pipeline import resolve_device
+
+    dev = resolve_device(args.device)
+    Index(args.index_dir).genomes[args.genome].run_annotate(
+        args.gff_file, nogene=args.nogene, device=dev)
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = argparse.ArgumentParser(
@@ -72,8 +96,9 @@ def main(argv=None):
         description="Pan-genome k-mer index build on one PyTorch device")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_index(sub)
+    _add_annotate(sub)
     args = parser.parse_args(argv)
-    {"index": _run_index}[args.cmd](args)
+    {"index": _run_index, "annotate": _run_annotate}[args.cmd](args)
 
 
 if __name__ == "__main__":

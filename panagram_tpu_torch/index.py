@@ -1,4 +1,4 @@
-"""The pan-kmer index, write path: samples, config, and anchoring.
+"""The pan-kmer index, write path: samples, config, anchoring, annotation.
 
 Writes the on-disk index of ``panagram_tpu.index`` for the same readers:
 
@@ -7,11 +7,18 @@ Writes the on-disk index of ``panagram_tpu.index`` for the same readers:
   anchor/<name>/chrs.tsv                   per-chromosome size = L - k + 1
   anchor/<name>/bitsum.bins.tsv            per-bin occupancy histograms
   anchor/<name>/total_paircounts.csv       per-genome presence totals
+  anchor/<name>/{gene,anno}.bed.gz + .csi  GFF tables (annotated genomes)
+  anchor/<name>/anno_types.txt             annotation types
+  anchor/<name>/bitsum.genes.tsv           per-chromosome gene histograms
+  anchor/<name>/{chrom,genome}_umap(s).csv 2-D embeddings of paircount bins
 
 The tables are formatted with the csv module or plain string formatting,
-byte-identical to what panagram_tpu writes through pandas.  Reading an
-index (queries, viewer, UMAP embeddings) stays with panagram_tpu.index,
-which opens this package's output.
+byte-identical to what panagram_tpu writes through pandas (the embeddings'
+coordinates to floating-point rounding; anno_types.txt lists a set, in
+hash order).  The read path is what the write path needs: ``query`` reads
+bitmap rows back for the embeddings and for ``annotate``; the viewer and
+the other readers stay with panagram_tpu.index, which opens this package's
+output.
 """
 
 from __future__ import annotations
@@ -25,8 +32,10 @@ import time
 import numpy as np
 
 from .config import IndexConfig, config_path, samples_path
-from .io.bgzf import BgzfWriter
+from .io.bgzf import BgzfReader, BgzfWriter
 from .io.fasta import FastaFile, iter_fasta, seq_to_codes
+from .io.gff import split_gff
+from .io.tabix import write_tabix
 
 logger = logging.getLogger(__name__)
 
@@ -55,12 +64,70 @@ def _read_tsv(path: str) -> list[dict]:
         return list(csv.DictReader(f, delimiter="\t"))
 
 
-def _write_tsv(path: str, header, rows):
-    """Tab-separated table in the dialect of pandas.DataFrame.to_csv."""
+def _write_tsv(path: str, header, rows, delimiter="\t"):
+    """A table in the dialect of pandas.DataFrame.to_csv."""
     with open(path, "w", newline="") as f:
-        w = csv.writer(f, delimiter="\t", lineterminator="\n")
+        w = csv.writer(f, delimiter=delimiter, lineterminator="\n")
         w.writerow(header)
         w.writerows(rows)
+
+
+def _na(name):
+    """A GFF name as panagram_tpu writes it: a missing one is 'nan'."""
+    return "nan" if name is None else name
+
+
+def _by_chrom(genes: list) -> dict:
+    """Gene rows grouped by chromosome, in order of first appearance."""
+    out: dict[str, list] = {}
+    for g in genes:
+        out.setdefault(g[0], []).append(g)
+    return out
+
+
+def bitmap_occupancy(rows: np.ndarray, ngenomes: int, device) -> np.ndarray:
+    """Genomes present at each bitmap row (uint8 [P, nbytes], no bit set
+    past ngenomes), int64 [P]: the rows widened to zero-padded u32 words,
+    the int32 rows layout of ops/anchor.anchor_chunk, and popcounted by the
+    fused_popcount_colsums kernel on `device`."""
+    import torch
+
+    from .ops import kernels
+
+    P, nbytes = rows.shape
+    words = np.zeros((P, 4 * -(-nbytes // 4)), np.uint8)
+    words[:, :nbytes] = rows
+    t = torch.from_numpy(words.view("<i4")).to(device)
+    popc, _ = kernels.fused_popcount_colsums(t, ngenomes)
+    return popc.cpu().numpy().astype(np.int64)
+
+
+def bitmap_to_bins(positions: np.ndarray, presence: np.ndarray, binlen: int):
+    """panagram_tpu.index.Index.bitmap_to_bins on arrays: bitmap rows at
+    `positions` with presence bits [rows, N] -> (bin starts [B], occupancy
+    histograms int64 [N+1, B], per-bin genome totals scaled by the bin's
+    largest total [B, N], NaN for an empty bin)."""
+    bins, slots = np.unique(np.asarray(positions) // binlen,
+                            return_inverse=True)
+    nb, n = len(bins), presence.shape[1]
+    # bincounts of flat (row, column) cells: the np.add.at sums of
+    # panagram_tpu, exact in integers and ~100x faster
+    occ = np.bincount(presence.sum(axis=1, dtype=np.int64) * nb + slots,
+                      minlength=(n + 1) * nb).reshape(n + 1, nb)
+    cells = slots[:, None] * n + np.arange(n)
+    sums = np.bincount(cells[presence.astype(bool)],
+                       minlength=nb * n).reshape(nb, n)
+    peak = sums.T.max(axis=0, keepdims=True)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        scaled = np.where(peak > 0, sums.T / peak, np.nan)
+    return bins * binlen, occ, scaled.T
+
+
+def bitmap_to_paircount_bins(positions, presence, binlen: int):
+    """(bin starts, scaled per-bin genome totals [B, N] with empty bins
+    0): the paircount profiles panagram_tpu embeds, fillna(0) applied."""
+    starts, _, scaled = bitmap_to_bins(positions, presence, binlen)
+    return starts, np.where(np.isnan(scaled), 0.0, scaled)
 
 
 class Index:
@@ -192,6 +259,7 @@ class Genome:
         self.is_fastq = fasta is not None and fasta.endswith(FASTQ_EXTS)
         self.anchored = (bool(anchor) if anchor is not None
                          else fasta is not None) and not self.is_fastq
+        self.annotated = gff is not None
         self.prefix = os.path.join(idx.prefix, ANCHOR_DIR, name)
         self.ngenomes = idx.ngenomes
         self.nbytes = (self.ngenomes + 7) // 8
@@ -211,8 +279,36 @@ class Genome:
         return os.path.join(self.index.prefix, self.fasta)
 
     @property
+    def _gff_path(self):
+        if self.gff is None or os.path.isabs(self.gff):
+            return self.gff
+        return os.path.join(self.index.prefix, self.gff)
+
+    @property
     def chrs_fname(self):
         return os.path.join(self.prefix, "chrs.tsv")
+
+    @property
+    def chr_genes_fname(self):
+        return os.path.join(self.prefix, "bitsum.genes.tsv")
+
+    @property
+    def anno_types_fname(self):
+        return os.path.join(self.prefix, "anno_types.txt")
+
+    def tabix_fname(self, typ):
+        return os.path.join(self.prefix, f"{typ}.bed.gz")
+
+    def tabix_idx_fname(self, typ):
+        return self.tabix_fname(typ) + ".csi"
+
+    @property
+    def chrom_umaps_filename(self):
+        return os.path.join(self.prefix, "chrom_umaps.csv")
+
+    @property
+    def genome_umap_filename(self):
+        return os.path.join(self.prefix, "genome_umap.csv")
 
     @property
     def bins_fname(self):
@@ -276,8 +372,13 @@ class Genome:
         lowres = self.index.lowres_step
         if self.chrs is None:
             self.init_chrs()
+        genes, by_chrom = None, {}
+        if self.annotated:
+            genes = self._init_gff()
+            by_chrom = _by_chrom(genes)
+            logger.info("Annotation pre-processed")
         for c in self.chrs:
-            c[3] = 0    # gene_count: annotation is not in this slice
+            c[3] = len(by_chrom.get(c[0], ()))
 
         writers = {s: BgzfWriter(self.bitmap_gz_fname(s)) for s in self.steps}
         bin_rows = []  # (chr_id, start, counts[0..N])
@@ -297,6 +398,7 @@ class Genome:
                 binlen = self.bin_bitsum_binlen(nkmers)
                 nbins = -(-nkmers // binlen)
                 hist = np.zeros((nbins, N + 1), np.int64)
+                popc_full = np.empty(nkmers, np.int16) if genes else None
 
                 it = stream_anchor_chunks(codes, nkmers, chunk, bucketed,
                                           nbytes, N, k)
@@ -320,10 +422,15 @@ class Genome:
                                         minlength=nbins * (N + 1)
                                         ).reshape(nbins, N + 1)
                     paircount_sums += chunk_colsums
+                    if popc_full is not None:
+                        popc_full[start:start + m] = popc
                     phase["bins"] += time.perf_counter() - t0
                 for b in range(nbins):
                     bin_rows.append((chrom_i, b * binlen, hist[b]))
                 logger.info(f"Anchored {chrom}")
+                if chrom in by_chrom:
+                    self._add_gene_hists(by_chrom[chrom], chrom, popc_full, 0)
+                    logger.info(f"Annotated {chrom}")
         finally:
             for w in writers.values():
                 w.close()
@@ -331,6 +438,8 @@ class Genome:
             writers[s].write_gzi(self.bitmap_gzi_fname(s))
 
         self._write_paircounts(paircount_sums)
+        if genes is not None:
+            self._write_genes(genes)
         with open(self.bins_fname, "w") as f:
             f.write("chr\tstart\t" + "\t".join(str(i) for i in range(N + 1))
                     + "\n")
@@ -338,6 +447,13 @@ class Genome:
                 f.write(f"{cid}\t{start}\t"
                         + "\t".join(str(int(c)) for c in counts) + "\n")
         self.write_chrs()
+
+        t0 = time.perf_counter()
+        try:
+            self.write_umaps()
+        except Exception as e:  # the embeddings are ancillary, as upstream
+            logger.warning(f"UMAP embedding failed: {e}", exc_info=True)
+        phase["finish"] = time.perf_counter() - t0
         logger.info("anchor phases: " + " ".join(
             f"{name}={v:.3f}s" for name, v in phase.items()))
 
@@ -353,3 +469,152 @@ class Genome:
             for name, c, fr in zip(self.index.genome_names, sums, frac):
                 f.write(f"{name},{int(c)},"
                         f"{'' if np.isnan(fr) else repr(float(fr))}\n")
+
+    # ---------------- annotation ----------------
+
+    def _init_gff(self) -> list:
+        """Parse the GFF: write the annotation tabix and anno_types.txt, and
+        return the genes as [chr, start, end, name, histogram int64 [N+1]]
+        rows, stably sorted by (chr, start, end)."""
+        conf = self.index.conf
+        genes, annos = split_gff(self._gff_path,
+                                 gene_types=conf.gff_gene_types,
+                                 anno_types=conf.gff_anno_types,
+                                 name_attr=conf.gff_name)
+        write_tabix([a[:4] + (_na(a[4]),) for a in annos],
+                    self.tabix_fname("anno"), self.tabix_idx_fname("anno"))
+        types = {a[3] for a in annos}
+        if conf.gff_anno_types is not None:
+            types = set(conf.gff_anno_types) & types
+        with open(self.anno_types_fname, "w") as f:
+            for t in types:
+                f.write(f"{t}\n")
+        genes.sort(key=lambda g: (g[0], g[1], g[2]))
+        for g in genes:
+            g.append(np.zeros(self.ngenomes + 1, np.int64))
+        return genes
+
+    def _add_gene_hists(self, rows: list, chrom: str, popc: np.ndarray,
+                        base: int):
+        """Add to each gene row of `chrom` the histogram of popc[start -
+        base : end - base] (GFF coordinates used as 0-based half-open
+        slices, as panagram_tpu does).  A gene whose span is empty, starts
+        below 0 or ends past popc is skipped with a warning.  Rows with the
+        same (chr, start, end) all receive every such row's histogram, as
+        panagram_tpu's `.loc[key] +=` gives them."""
+        same = {}
+        for g in rows:
+            same.setdefault((g[1], g[2]), []).append(g)
+        for _, start, end, _, _ in rows:
+            if end <= start or start < 0 or end - base > len(popc):
+                logger.warning(f"Skipping gene at {chrom}:{start}-{end}, "
+                               "coordinates out-of-bounds")
+                continue
+            occ = np.bincount(popc[start - base:end - base],
+                              minlength=self.ngenomes + 1)
+            for g in same[(start, end)]:
+                g[4] += occ
+
+    def _write_genes(self, genes: list):
+        """gene.bed.gz + .csi (chr, start, end, name, genes with 1 and with
+        N genomes present) and bitsum.genes.tsv (per-chromosome sums of
+        the histograms, chromosomes in order of appearance)."""
+        N = self.ngenomes
+        write_tabix([(c, s, e, _na(name), h[1], h[N])
+                     for c, s, e, name, h in genes],
+                    self.tabix_fname("gene"), self.tabix_idx_fname("gene"))
+        sums: dict[str, np.ndarray] = {}
+        for c, _, _, _, h in genes:
+            sums[c] = sums[c] + h if c in sums else h.copy()
+        _write_tsv(self.chr_genes_fname, ["chr"] + list(range(N + 1)),
+                   [[c] + [int(v) for v in h] for c, h in sums.items()])
+
+    def run_annotate(self, gff_file=None, nogene=False, device="cpu"):
+        """(Re-)annotate from the existing bitmap: panagram_tpu's
+        Genome.run_annotate.  Each chromosome's genes are counted over one
+        read of its bitmap rows [first gene start, min(size, last gene
+        end)), whose per-position occupancy comes from the
+        fused_popcount_colsums kernel on `device`.  chrs.tsv is left as it
+        is."""
+        if gff_file is not None:
+            self.gff = gff_file
+        self.annotated = True
+        if self.chrs is None:
+            raise ValueError(f"genome '{self.name}' has no anchor/{self.name}/"
+                             "chrs.tsv: annotate needs an anchored genome")
+        genes = self._init_gff()
+        if nogene:
+            return
+        sizes = {c[0]: c[2] for c in self.chrs}
+        for chrom, on in _by_chrom(genes).items():
+            if chrom not in sizes:
+                logger.warning(f"Skipping genes at {chrom}, chromosome not "
+                               "found")
+                continue
+            st = min(g[1] for g in on)
+            en = min(sizes[chrom], max(g[2] for g in on))
+            _, rows = self.query_rows(chrom, st, en)
+            self._add_gene_hists(on, chrom,
+                                 bitmap_occupancy(rows, self.ngenomes, device),
+                                 st)
+        self._write_genes(genes)
+
+    # ---------------- read path ----------------
+
+    def query_rows(self, name, start=None, end=None, step=1):
+        """Bitmap rows of chromosome `name` over [start, end) at `step`:
+        (positions, uint8 [rows, nbytes]).  Rows come from the coarsest
+        stored resolution whose step divides `step`, thinned to it; the
+        semantics of panagram_tpu.index.Genome.query."""
+        size = {c[0]: c[2] for c in self.chrs}[name]
+        start = 0 if start is None else start
+        end = size if end is None else end
+        stored = max((s for s in self.steps if step % s == 0), default=1)
+        row_base = start // stored
+        for cname, _, csize, _ in self.chrs:
+            if cname == name:
+                break
+            row_base += -(-csize // stored)
+        n_rows = (end - 1 - start) // stored + 1
+        with BgzfReader(self.bitmap_gz_fname(stored),
+                        self.bitmap_gzi_fname(stored)) as r:
+            raw = r.read_at(row_base * self.nbytes, n_rows * self.nbytes)
+        mat = np.frombuffer(raw, np.uint8).reshape(-1, self.nbytes)
+        thin = step // stored
+        if thin > 1:
+            mat = mat[::thin]
+        positions = np.arange(start, end, step)
+        return positions, mat[:len(positions)]
+
+    def query(self, name, start=None, end=None, step=1):
+        """(positions, presence bits uint8 [rows, N]) of query_rows."""
+        positions, rows = self.query_rows(name, start, end, step)
+        bits = np.unpackbits(rows, axis=1, bitorder="little")
+        return positions, bits[:, :self.ngenomes]
+
+    def write_umaps(self):
+        """chrom_umaps.csv (each chromosome's bins of chrom_umap.bin_size
+        embedded on their own) and genome_umap.csv (all bins of
+        genome_umap.bin_size embedded together), from the low-resolution
+        bitmap: panagram_tpu's Genome.write_umaps."""
+        from .umap_embed import run_embedding
+
+        conf = self.index.conf
+        header = ["chrom", "start", "end", "umap1", "umap2", "cluster"]
+        chrom_rows = []
+        genome = ([], [], [])
+        for name, _, _, _ in self.chrs:
+            positions, bits = self.query(name, step=self.index.lowres_step)
+            starts, pc = bitmap_to_paircount_bins(positions, bits,
+                                                  conf.chrom_umap.bin_size)
+            chrom_rows += run_embedding([name] * len(starts), starts, pc,
+                                        conf.chrom_umap, self.name)
+            starts, pc = bitmap_to_paircount_bins(positions, bits,
+                                                  conf.genome_umap.bin_size)
+            genome[0].extend([name] * len(starts))
+            genome[1].append(starts)
+            genome[2].append(pc)
+        _write_tsv(self.chrom_umaps_filename, header, chrom_rows, ",")
+        _write_tsv(self.genome_umap_filename, header, run_embedding(
+            genome[0], np.concatenate(genome[1]), np.concatenate(genome[2]),
+            conf.genome_umap, self.name), ",")

@@ -37,6 +37,15 @@ _HEADER = struct.Struct("<4BI2BH2BHH")  # gzip header + XLEN + BC subfield
 _MT_MIN_BLOCKS = 8
 
 
+def make_virtual_offset(block_start_offset: int,
+                        within_block_offset: int) -> int:
+    """BGZF virtual offset: the block's file offset << 16 | the offset of
+    a byte within the block's uncompressed data."""
+    if within_block_offset >= 65536:
+        raise ValueError("within_block_offset must be < 65536")
+    return (block_start_offset << 16) | within_block_offset
+
+
 def _block_header(bsize: int) -> bytes:
     return _HEADER.pack(
         0x1F, 0x8B, 0x08, 0x04,  # magic, deflate, FEXTRA

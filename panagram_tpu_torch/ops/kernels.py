@@ -28,6 +28,7 @@ u32 data travels as int32 tensors holding the same bits.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -53,26 +54,31 @@ _SIGNATURES = {
     "pg_mosaic_probe": [_P, _P, _I64, _P, _P],
 }
 _lib_handle = None
+# guards the first-use build and load of the library and every update of
+# `launches`: anchor threads (--cores) launch kernels concurrently
+_lock = threading.Lock()
 
 
 def _lib():
     global _lib_handle
-    if _lib_handle is None:
-        from .. import _build
+    with _lock:
+        if _lib_handle is None:
+            from .. import _build
 
-        _build.build()
-        lib = ctypes.CDLL(_build.LIB_PATH)
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib_handle = lib
-    return _lib_handle
+            _build.build()
+            lib = ctypes.CDLL(_build.LIB_PATH)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib_handle = lib
+        return _lib_handle
 
 
 def reset_launches():
-    for name in launches:
-        launches[name] = 0
+    with _lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -100,7 +106,8 @@ def _launched(name: str, rc: int, device):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc} "
                            f"on {device}")
-    launches[name] += 1
+    with _lock:
+        launches[name] += 1
 
 
 def _stream(device) -> _P:

@@ -1,6 +1,7 @@
 """Index build: the stage DAG of panagram_tpu.pipeline on one device.
 
   count[g]   per-genome distinct canonical k-mer set  -> kmc/<g>.kmers.npz
+             (a FASTQ read set keeps k-mers seen at least twice)
   dict       merged presence-mask dictionary          -> kmc/pandict.npz
   layout     bucket table, laid out on the device once for all anchors
   anchor[g]  per-anchor bitmaps + summaries           -> anchor/<g>/*
@@ -13,14 +14,18 @@ dict: every genome streams through the device-resident builder
 A stage is skipped when its outputs exist and are no older than its inputs,
 and each stage that runs writes its wall time to logs/<stage>.benchmark.txt
 (the names of panagram_tpu's: kmc.<g>, dict, anchor.<g>, mash.triangle,
-plus layout).  Every device step runs on the `device` given.
+plus layout).  Every device step runs on the `device` given.  With
+cores > 1 the anchor genomes run in that many threads, each with its own
+CUDA stream, against the one bucket table.
 """
 
 from __future__ import annotations
 
+import gzip
 import logging
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -28,7 +33,7 @@ import torch
 from .distances import write_genome_dist
 from .index import Index
 from .io.fasta import iter_fasta, seq_to_codes
-from .ops.count import distinct_kmers_chunked
+from .ops.count import counted_kmers_chunked, distinct_kmers_chunked
 from .ops.devdict import DeviceDictBuilder
 from .ops.dictionary import PanKmerDict, build_dictionary
 from .ops.lookup import BucketedDict
@@ -37,19 +42,8 @@ logger = logging.getLogger(__name__)
 _LOG_FORMAT = "[%(asctime)s %(levelname)s] %(message)s"
 _LOG_DATEFMT = "%Y-%m-%d %H:%M:%S"
 
-# what a later step of ROADMAP.md's port queue brings, by unsupported input
-_LATER = {
-    "gff": "GFF annotation (gene/anno tabix, run_annotate)",
-    "fastq": "FASTQ read-set counting (counted_kmers_chunked)",
-    "mesh": "--mesh (parallel/ on torch.distributed)",
-    "cores": "--cores > 1 (threaded anchoring of several genomes)",
-}
-
-
-def not_in_slice(what: str):
-    return NotImplementedError(
-        f"{_LATER[what]} is not ported to panagram_tpu_torch yet; it is a "
-        "later step of ROADMAP.md's port queue (panagram_tpu builds it)")
+# FASTQ reads must hold a k-mer this many times to count (KMC's -ci2)
+FASTQ_MIN_COUNT = 2
 
 
 def resolve_device(device) -> torch.device:
@@ -86,19 +80,42 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+def _iter_fastq(path):
+    """Yield ("read", sequence) for each 4-line FASTQ record (gzip when the
+    name ends in .gz) with a non-empty sequence line."""
+    opn = gzip.open if str(path).endswith(".gz") else open
+    with opn(path, "rt") as f:
+        while True:
+            if not f.readline():
+                break
+            seq = f.readline().strip()
+            f.readline()
+            f.readline()
+            if seq:
+                yield "read", seq
+
+
 def count_genome(index: Index, name: str, device: torch.device,
                  force=False) -> str:
-    """Stage count[g]: distinct canonical k-mers of one genome (FASTA)."""
+    """Stage count[g]: distinct canonical k-mers of one genome: every k-mer
+    of a FASTA, those seen FASTQ_MIN_COUNT times or more in a FASTQ read
+    set."""
     out = index.kmer_set_fname(name)
-    fasta = index.genomes[name]._fasta_path
+    g = index.genomes[name]
+    fasta = g._fasta_path
     if not force and index.conf.kmc.use_existing and os.path.exists(out):
         return out
     if not force and _outputs_fresh([out], [fasta]):
         return out
     t0 = time.time()
     os.makedirs(index.kmer_dir, exist_ok=True)
-    codes = (seq_to_codes(seq) for _, seq in iter_fasta(fasta))
-    kmers = distinct_kmers_chunked(codes, index.k, device)
+    if g.is_fastq:
+        codes = (seq_to_codes(seq) for _, seq in _iter_fastq(fasta))
+        kmers = counted_kmers_chunked(codes, index.k, device,
+                                      min_count=FASTQ_MIN_COUNT)
+    else:
+        codes = (seq_to_codes(seq) for _, seq in iter_fasta(fasta))
+        kmers = distinct_kmers_chunked(codes, index.k, device)
     tmp = out + f".tmp.{os.getpid()}.npz"
     np.savez(tmp, kmers=kmers, k=index.k)
     os.replace(tmp, out)
@@ -131,6 +148,14 @@ def build_dict_device(index: Index, device: torch.device, force=False) -> str:
     genome streams through the device-resident builder; no per-genome set
     files, and resume granularity is the whole dictionary."""
     out = index.dict_fname
+    fastq = [n for n in index.genome_names if index.genomes[n].is_fastq]
+    if fastq:
+        # panagram_tpu's device builder reads a FASTQ file as FASTA and
+        # finds no record in it: refuse instead of an empty presence column
+        raise ValueError(
+            f"--device-dict cannot count the FASTQ read set(s) {fastq}: "
+            "build without --device-dict (the default route counts reads "
+            "with min-count 2)")
     fastas = [index.genomes[n]._fasta_path for n in index.genome_names]
     if not force and _outputs_fresh([out], fastas):
         return out
@@ -225,19 +250,25 @@ def anchor_outputs(index: Index, name: str) -> list[str]:
                                            for s in index.steps]
 
 
-def anchor_stage(index: Index, name: str, bucketed: BucketedDict):
-    """Stage anchor[g], with its log in logs/anchor.<g>.log.txt."""
+def anchor_stage(index: Index, name: str, bucketed: BucketedDict,
+                 per_stage_logfile=True):
+    """Stage anchor[g], with its log in logs/anchor.<g>.log.txt when
+    per_stage_logfile (a threaded run has no per-anchor log: the package
+    logger is shared by every thread, as panagram_tpu's threaded path)."""
     t0 = time.time()
-    log = os.path.join(index.prefix, "logs", f"anchor.{name}.log.txt")
-    handler = logging.FileHandler(log, mode="w")
-    handler.setFormatter(logging.Formatter(_LOG_FORMAT, _LOG_DATEFMT))
+    handler = None
     pkg = logging.getLogger("panagram_tpu_torch")
-    pkg.addHandler(handler)
+    if per_stage_logfile:
+        log = os.path.join(index.prefix, "logs", f"anchor.{name}.log.txt")
+        handler = logging.FileHandler(log, mode="w")
+        handler.setFormatter(logging.Formatter(_LOG_FORMAT, _LOG_DATEFMT))
+        pkg.addHandler(handler)
     try:
         index.genomes[name].run_anchor(bucketed)
     finally:
-        pkg.removeHandler(handler)
-        handler.close()
+        if handler is not None:
+            pkg.removeHandler(handler)
+            handler.close()
     _benchmark(index.prefix, f"anchor.{name}", t0)
 
 
@@ -254,33 +285,24 @@ def dist_stage(index: Index, pan_dict: PanKmerDict | None,
     return out
 
 
-def check_slice(index: Index):
-    """Raise NotImplementedError for inputs this slice of the port does not
-    build (see _LATER)."""
-    for g in index.genomes.values():
-        if g.gff is not None:
-            raise not_in_slice("gff")
-        if g.is_fastq:
-            raise not_in_slice("fastq")
-    if int(index.conf.cores or 1) > 1:
-        raise not_in_slice("cores")
-
-
 def build_index(samples_or_dir: str, prefix=None, force=False,
                 device="cuda", device_dict=False, mesh_devices=None,
                 **params) -> Index:
     """Run the build DAG on one device.  `samples_or_dir` is a samples.tsv
     (fresh build) or an initialized index dir (resume).  device_dict=True
-    counts and merges on the device in one stage (build_dict_device)."""
+    counts and merges on the device in one stage (build_dict_device).
+    --mesh is not ported (ROADMAP.md's port queue) and raises."""
     if mesh_devices:
-        raise not_in_slice("mesh")
+        raise NotImplementedError(
+            "--mesh (parallel/ on torch.distributed) is not ported to "
+            "panagram_tpu_torch yet; it is a later step of ROADMAP.md's port "
+            "queue (panagram_tpu builds it)")
     dev = resolve_device(device)
     # INFO to stderr unless the process configured logging already (what
     # panagram_tpu's init_logger does); anchor logs also go to logs/
     logging.basicConfig(level=logging.INFO, format=_LOG_FORMAT,
                         datefmt=_LOG_DATEFMT)
     index = Index(samples_or_dir, prefix=prefix, **params)
-    check_slice(index)
     os.makedirs(os.path.join(index.prefix, "logs"), exist_ok=True)
 
     if device_dict:
@@ -292,16 +314,23 @@ def build_index(samples_or_dir: str, prefix=None, force=False,
         build_dict_stage(index, dev, force=force)
     pan_dict = PanKmerDict.load(index.dict_fname)
 
-    bucketed = None
-    for name in index.anchor_genomes:
-        g = index.genomes[name]
-        if not force and _outputs_fresh(anchor_outputs(index, name),
-                                        [index.dict_fname, g._fasta_path]):
-            continue
-        if bucketed is None:
-            bucketed = layout_stage(index, pan_dict, dev)
-        anchor_stage(index, name, bucketed)
-    del bucketed
+    todo = [n for n in index.anchor_genomes
+            if force or not _outputs_fresh(
+                anchor_outputs(index, n),
+                [index.dict_fname, index.genomes[n]._fasta_path])]
+    if todo:
+        bucketed = layout_stage(index, pan_dict, dev)
+        cores = max(int(index.conf.cores or 1), 1)
+        if cores > 1 and len(todo) > 1:
+            with ThreadPoolExecutor(max_workers=cores) as ex:
+                futures = [ex.submit(anchor_stage, index, n, bucketed, False)
+                           for n in todo]
+                for f in futures:
+                    f.result()
+        else:
+            for name in todo:
+                anchor_stage(index, name, bucketed)
+        del bucketed
 
     dist_stage(index, pan_dict, dev, force=force)
     return index

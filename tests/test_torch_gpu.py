@@ -10,10 +10,15 @@ numpy with a fixed seed; everything is integer, so every comparison is
 exact (tolerance 0).
 """
 
+import filecmp
+import os
+import threading
+
 import numpy as np
 import pytest
 import torch
 
+from panagram_tpu_torch import index as port_index
 from panagram_tpu_torch.io.fasta import seq_to_codes
 from panagram_tpu_torch.ops import count, devdict, kernels, lookup
 from panagram_tpu_torch.ops.anchor import anchor_chunk
@@ -26,6 +31,7 @@ from panagram_tpu_torch.ops.lookup import (
     plan_probe,
 )
 from panagram_tpu_torch.ops.ref_impl import anchor_np, masks_to_bytes_np
+from panagram_tpu_torch.pipeline import build_index
 from panagram_tpu_torch.tools import mosaic_probe
 
 pytestmark = pytest.mark.gpu
@@ -247,3 +253,127 @@ def test_device_dict_on_card(cuda):
     assert np.array_equal(got.masks, want.masks)
     tw, tg = (b.bucketed().table for b in builders)
     assert tg.device.type == "cuda" and torch.equal(tg.cpu(), tw)
+
+
+def test_fastq_count_on_card_bounded(cuda):
+    """FASTQ counting on the card equals the CPU path, and keeps at most
+    SPILL_CHUNKS counted chunks there: the peak of a 32-chunk read set is
+    that of an 8-chunk one."""
+    chunk = 1 << 16
+    rng = np.random.default_rng(17)
+    genome = rng.integers(0, 4, 1 << 20).astype(np.uint8)
+
+    def reads(nchunks):
+        # 150-bp reads at ~2x of a region, 0.5% substitutions
+        n = nchunks * chunk // 151
+        starts = rng.integers(0, len(genome) - 150, n)
+        out = [genome[s:s + 150].copy() for s in starts]
+        for r in out:
+            bad = rng.random(150) < 0.005
+            r[bad] = rng.integers(0, 4, int(bad.sum()))
+        return out
+
+    def peak(rs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = count.counted_kmers_chunked(rs, K, cuda, chunk=chunk)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base, got
+
+    short, _ = peak(reads(8))
+    rs = reads(32)
+    long_, got = peak(rs)
+    assert long_ <= 1.25 * short
+    want = count.counted_kmers_chunked(rs, K, "cpu", chunk=chunk)
+    assert len(got) > 0 and np.array_equal(got, want)
+
+
+def _write_genomes(tmp, rng, n=4, bp=700_000):
+    """n genomes of two chromosomes each (bp and bp // 2), one base with
+    0.5% private substitutions per genome."""
+    base = rng.integers(0, 4, bp + bp // 2).astype(np.uint8)
+    rows = []
+    for g in range(n):
+        s = base.copy()
+        pos = rng.choice(len(s), len(s) // 200, replace=False)
+        s[pos] = rng.integers(0, 4, len(pos))
+        seq = np.frombuffer(b"ACGT", np.uint8)[s].tobytes().decode()
+        path = tmp / f"g{g}.fa"
+        path.write_text(f">chr1\n{seq[:bp]}\n>chr2\n{seq[bp:]}\n")
+        rows.append(f"g{g}\t{path}\n")
+    samples = tmp / "samples.tsv"
+    samples.write_text("name\tfasta\n" + "".join(rows))
+    return samples
+
+
+def test_threaded_anchoring_on_card(cuda, tmp_path, monkeypatch):
+    """3 anchor threads on one card write what one thread writes, and
+    launch each anchor kernel once per chunk, as the serial build does."""
+    monkeypatch.setattr(port_index, "ANCHOR_CHUNK", 1 << 18)
+    samples = _write_genomes(tmp_path, np.random.default_rng(9))
+    anchors = ["g0", "g1", "g2"]
+    launched = {}
+    for cores in (1, 3):
+        kernels.reset_launches()
+        build_index(str(samples), prefix=str(tmp_path / f"c{cores}"), k=K,
+                    device=cuda, cores=cores, anchor_genomes=anchors)
+        torch.cuda.synchronize()
+        launched[cores] = dict(kernels.launches)
+    chunks = len(anchors) * (-(-(700_000 - K + 1) // (1 << 18))
+                             + -(-(350_000 - K + 1) // (1 << 18)))
+    for name in ("pack_mix", "probe_sorted", "fused_popcount_colsums",
+                 "masks_to_bytes"):
+        assert launched[1][name] == launched[3][name] == chunks, name
+    n = 0
+    for root, _, files in os.walk(tmp_path / "c3"):
+        rel = os.path.relpath(root, tmp_path / "c3")
+        if rel.split(os.sep)[0] == "logs":
+            continue
+        for fn in files:
+            if fn != "config.yaml":
+                assert filecmp.cmp(os.path.join(root, fn),
+                                   tmp_path / "c1" / rel / fn,
+                                   shallow=False), (rel, fn)
+                n += 1
+    assert n == 2 + 5 + 9 * len(anchors)
+
+
+def test_kernel_counter_threads_on_card(cuda):
+    """N threads that launch a kernel M times each raise its counter by
+    N x M: no update is lost."""
+    nthreads, calls = 6, 50
+    rows = torch.from_numpy(np.arange(2048, dtype=np.int32).reshape(1024, 2)
+                            ).to(cuda)
+    before = kernels.launches["masks_to_bytes"]
+
+    def run():
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            for _ in range(calls):
+                kernels.masks_to_bytes(rows, 5)
+
+    threads = [threading.Thread(target=run) for _ in range(nthreads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert kernels.launches["masks_to_bytes"] - before == nthreads * calls
+
+
+@pytest.mark.parametrize("ngenomes", [3, 32, 34, 100])
+def test_annotate_occupancy_kernel(cuda, ngenomes):
+    """The annotate popcount (bitmap bytes widened to u32 words, then
+    fused_popcount_colsums) equals its plain version and numpy's."""
+    rng = np.random.default_rng(ngenomes)
+    nbytes = (ngenomes + 7) // 8
+    bits = rng.random((100_003, ngenomes)) < 0.6
+    rows = np.packbits(bits, axis=1, bitorder="little")
+    assert rows.shape[1] == nbytes
+    before = kernels.launches["fused_popcount_colsums"]
+    got = port_index.bitmap_occupancy(rows, ngenomes, cuda)
+    assert kernels.launches["fused_popcount_colsums"] == before + 1
+    assert np.array_equal(got, port_index.bitmap_occupancy(rows, ngenomes,
+                                                           "cpu"))
+    assert np.array_equal(got, bits.sum(axis=1))

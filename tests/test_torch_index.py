@@ -3,9 +3,14 @@
 The 3-genome, 2-chromosome fixture of tests/test_index.py (k=11, an N
 run in g3) without its GFF goes through both packages' build_index, on the
 default route and on --device-dict; every file the port writes must equal
-panagram_tpu's.  Exact comparison throughout (tolerance 0).
+panagram_tpu's.  Exact comparison throughout (tolerance 0), but for two
+kinds of file: anno_types.txt lists a set in hash order (compared as a set
+of lines), and the UMAP coordinates of chrom_umaps.csv / genome_umap.csv
+come from floating-point PCA (UMAP_ATOL absolute; every other column
+exact).
 """
 
+import csv
 import filecmp
 import os
 import subprocess
@@ -27,6 +32,8 @@ torch.set_num_threads(2)
 
 K = 11
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+UMAP_FILES = ("chrom_umaps.csv", "genome_umap.csv")
+UMAP_ATOL = 1e-9
 
 
 def write_fixture(tmp, rng):
@@ -60,26 +67,57 @@ def write_fixture(tmp, rng):
     return samples
 
 
+def assert_same_umaps(p, q):
+    """Two UMAP CSVs: the same header and rows, chrom/start/end/cluster
+    exact and umap1/umap2 within UMAP_ATOL."""
+    with open(p, newline="") as f:
+        a = list(csv.reader(f))
+    with open(q, newline="") as f:
+        b = list(csv.reader(f))
+    assert a[0] == b[0] == ["chrom", "start", "end", "umap1", "umap2",
+                            "cluster"], p
+    assert len(a) == len(b), p
+    for ra, rb in zip(a[1:], b[1:]):
+        assert ra[:3] + ra[5:] == rb[:3] + rb[5:], (p, ra, rb)
+        for x, y in zip(ra[3:5], rb[3:5]):
+            assert abs(float(x) - float(y)) <= UMAP_ATOL, (p, ra, rb)
+
+
+def assert_same_file(p, q):
+    """npz members array by array, anno_types.txt as a set of lines, the
+    UMAP CSVs by assert_same_umaps, everything else byte for byte."""
+    fn = os.path.basename(p)
+    if fn.endswith(".npz"):
+        a, b = np.load(p), np.load(q)
+        assert a.files == b.files, p
+        for f in a.files:
+            assert a[f].dtype == b[f].dtype, (p, f)
+            assert np.array_equal(a[f], b[f]), (p, f)
+    elif fn == "anno_types.txt":
+        with open(p) as f, open(q) as g:
+            a, b = f.read().splitlines(), g.read().splitlines()
+        assert sorted(a) == sorted(b) and len(set(a)) == len(a), p
+    elif fn in UMAP_FILES:
+        assert_same_umaps(p, q)
+    else:
+        assert filecmp.cmp(p, q, shallow=False), p
+
+
 def assert_same_tree(port_dir, jax_dir, skip=()):
-    """Every file under port_dir (but logs/) equals its twin under jax_dir:
-    npz members array by array, everything else byte for byte."""
+    """Every file under port_dir (but logs/ and the names in skip) equals
+    its twin under jax_dir (assert_same_file)."""
     n = 0
     for root, _, files in os.walk(port_dir):
         rel = os.path.relpath(root, port_dir)
         if rel.split(os.sep)[0] == "logs":
             continue
         for fn in files:
+            if fn in skip:
+                continue
             p = os.path.join(root, fn)
             q = os.path.join(jax_dir, rel, fn)
             assert os.path.exists(q), q
-            if fn.endswith(".npz"):
-                a, b = np.load(p), np.load(q)
-                assert a.files == b.files, p
-                for f in a.files:
-                    assert a[f].dtype == b[f].dtype, (p, f)
-                    assert np.array_equal(a[f], b[f]), (p, f)
-            else:
-                assert filecmp.cmp(p, q, shallow=False), p
+            assert_same_file(p, q)
             n += 1
     return n
 
@@ -101,11 +139,10 @@ def jax_build_device_dict(samples, prefix, **params):
                         **params)
 
 
-def assert_same_trees(port_dir, jax_dir):
+def assert_same_trees(port_dir, jax_dir, skip=()):
     """assert_same_tree, and the two trees hold the same number of files
-    (the port does not write chrom_umaps.csv / genome_umap.csv)."""
-    n = assert_same_tree(str(port_dir), str(jax_dir))
-    skip = {"chrom_umaps.csv", "genome_umap.csv"}
+    (but logs/ and the names in skip)."""
+    n = assert_same_tree(str(port_dir), str(jax_dir), skip)
     m = sum(1 for root, _, files in os.walk(jax_dir)
             if os.path.relpath(root, jax_dir).split(os.sep)[0] != "logs"
             for f in files if f not in skip)
@@ -125,12 +162,13 @@ def built(tmp_path_factory):
 
 def test_outputs_byte_identical(built):
     tmp = built["tmp"]
-    n = assert_same_tree(str(tmp / "port"), str(tmp / "jax"))
+    n = assert_same_trees(tmp / "port", tmp / "jax")
     want = {"samples.tsv", "config.yaml", "genome_dist.tsv"}
     for g in ("g1", "g2", "g3"):
         want |= {f"anchor/{g}/{f}" for f in (
             "bitmap.1.gz", "bitmap.1.gzi", "bitmap.100.gz", "bitmap.100.gzi",
-            "chrs.tsv", "bitsum.bins.tsv", "total_paircounts.csv")}
+            "chrs.tsv", "bitsum.bins.tsv", "total_paircounts.csv",
+            "chrom_umaps.csv", "genome_umap.csv")}
         want.add(f"kmc/{g}.kmers.npz")
     want.add("kmc/pandict.npz")
     for f in want:
@@ -174,20 +212,8 @@ def test_cli_prepare_and_refusals(built, tmp_path, capsys):
     assert "Prepared index" in capsys.readouterr().out
 
     base = ["index", str(samples), "-k", str(K), "--device", "cpu"]
-    for extra, word in ((["--mesh", "2"], "mesh"),
-                        (["--cores", "2"], "cores")):
-        with pytest.raises(NotImplementedError, match=word):
-            port_main(base + ["--prefix", str(tmp_path / word)] + extra)
-
-    gff = tmp_path / "gff.tsv"
-    gff.write_text("name\tfasta\tgff\n"
-                   f"g1\t{samples.parent}/fastas/g1.fa\tg1.gff\n")
-    with pytest.raises(NotImplementedError, match="GFF"):
-        build_index(str(gff), prefix=str(tmp_path / "g"), device="cpu")
-    fq = tmp_path / "fq.tsv"
-    fq.write_text("name\tfasta\nr1\treads.fq.gz\n")
-    with pytest.raises(NotImplementedError, match="FASTQ"):
-        build_index(str(fq), prefix=str(tmp_path / "q"), device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        port_main(base + ["--prefix", str(tmp_path / "mesh"), "--mesh", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             build_index(str(samples), prefix=str(tmp_path / "c"), device="cuda")
@@ -207,7 +233,7 @@ def built_dd(built):
 def test_device_dict_outputs_byte_identical(built_dd):
     tmp = built_dd
     n = assert_same_trees(tmp / "port_dd", tmp / "jax_dd")
-    assert n == 3 + 1 + 7 * 3           # no per-genome k-mer set files
+    assert n == 3 + 1 + 9 * 3           # no per-genome k-mer set files
     assert not any(f.endswith(".kmers.npz")
                    for f in os.listdir(tmp / "port_dd" / "kmc"))
     pan = np.load(tmp / "port_dd" / "kmc" / "pandict.npz")
@@ -225,9 +251,24 @@ def test_device_dict_outputs_byte_identical(built_dd):
 
 
 def test_runs_without_jax_pandas_yaml_sklearn(built, built_dd, tmp_path):
-    """The package imports and builds the fixture, on both routes, with
-    jax, pandas, yaml and sklearn made unimportable."""
+    """The package imports and builds the fixture, on both routes, then an
+    annotated build with a FASTQ read set on 2 threads and an annotate
+    run, with jax, pandas, yaml and sklearn made unimportable."""
     args = ["index", str(built["samples"]), "-k", str(K), "--device", "cpu"]
+    fa = built["samples"].parent / "fastas"
+    (tmp_path / "g1.gff").write_text(
+        "chr1\tsrc\tgene\t101\t400\t.\t+\t.\tID=gene1;Name=GeneA\n"
+        "chr1\tsrc\texon\t101\t220\t.\t+\t.\tID=ex1;Parent=gene1\n")
+    with open(fa / "g2.fa") as f:
+        read = "".join(f.read().splitlines()[1:4])
+    (tmp_path / "r.fq").write_text(f"@a\n{read}\n+\n{'I' * len(read)}\n" * 2)
+    samples = tmp_path / "anno.tsv"
+    samples.write_text("name\tfasta\tgff\n"
+                       f"g1\t{fa}/g1.fa\t{tmp_path}/g1.gff\n"
+                       f"g2\t{fa}/g2.fa\t\ng3\t{fa}/g3.fa\t\n"
+                       f"reads\t{tmp_path}/r.fq\t\n")
+    anno = ["index", str(samples), "-k", str(K), "--device", "cpu",
+            "--cores", "2"]
     code = (
         "import sys\n"
         "for m in ('jax', 'pandas', 'yaml', 'sklearn'): sys.modules[m] = None\n"
@@ -235,6 +276,9 @@ def test_runs_without_jax_pandas_yaml_sklearn(built, built_dd, tmp_path):
         "from panagram_tpu_torch.__main__ import main\n"
         f"main({args + ['--prefix', str(tmp_path / 'iso')]!r})\n"
         f"main({args + ['--prefix', str(tmp_path / 'iso_dd'), '--device-dict']!r})\n"
+        f"main({anno + ['--prefix', str(tmp_path / 'iso_anno')]!r})\n"
+        f"main(['annotate', {str(tmp_path / 'iso_anno')!r}, 'g3', "
+        f"{str(tmp_path / 'g1.gff')!r}, '--device', 'cpu'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'pandas', 'yaml', 'sklearn', 'panagram_tpu') "
         "and sys.modules[m] is not None]\n"
@@ -247,3 +291,10 @@ def test_runs_without_jax_pandas_yaml_sklearn(built, built_dd, tmp_path):
     # the in-process ones, whatever the working directory
     assert_same_tree(str(tmp_path / "iso"), str(built["tmp"] / "port"))
     assert_same_tree(str(tmp_path / "iso_dd"), str(built_dd / "port_dd"))
+    jax_build_index(str(samples), prefix=str(tmp_path / "jax_anno"), k=K,
+                    cores=2)
+    JaxIndex(str(tmp_path / "jax_anno"))["g3"].run_annotate(
+        str(tmp_path / "g1.gff"))
+    # g1 and g3 annotated (15 files each), g2 not (9)
+    assert assert_same_trees(tmp_path / "iso_anno", tmp_path / "jax_anno") \
+        == 3 + 5 + 15 + 9 + 15

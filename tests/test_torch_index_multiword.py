@@ -57,7 +57,7 @@ def test_many_genomes_multiword_outputs_byte_identical(samples):
     build_index(str(samples), prefix=str(tmp_path / "port"), k=K,
                 anchor_genomes=anchors, device="cpu")
     n = assert_same_tree(str(tmp_path / "port"), str(tmp_path / "jax"))
-    assert n == 3 + 41 + 7 * len(anchors)
+    assert n == 3 + 41 + 9 * len(anchors)
     assert not (tmp_path / "port" / "anchor" / "g05").exists()
 
     pan = np.load(tmp_path / "port" / "kmc" / "pandict.npz")
@@ -77,6 +77,6 @@ def test_many_genomes_device_dict_byte_identical(samples):
                str(tmp_path / "port_dd"), "--device", "cpu", "--device-dict",
                "--anchor-genomes", *ANCHORS])
     n = assert_same_trees(tmp_path / "port_dd", tmp_path / "jax_dd")
-    assert n == 3 + 1 + 7 * len(ANCHORS)
+    assert n == 3 + 1 + 9 * len(ANCHORS)
     pan = np.load(tmp_path / "port_dd" / "kmc" / "pandict.npz")
     assert pan["masks"].shape[1] == 2 and str(pan["key_space"]) == "mixed"
