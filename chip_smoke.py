@@ -36,11 +36,25 @@
    bitmap with the fused_popcount_colsums kernel.  Prints the FASTQ count
    wall and reads/s, the anchor stage's wall at --cores 3 and 1, the
    annotate wall and the embedding walls.
-8. Layout phase: ~1e8 mixed keys drawn on the card (W=1) laid out by
-   BucketedDict.build_device, the single-pass route and the chunked route;
-   the three tables must be equal and a sample of keys must find their
-   masks.
-9. Prints the kernels JSON line, the card line, and last
+8. The mesh phase: the slice's genomes through ``--mesh 1`` (one spawned
+   rank on NCCL) under ``--mesh-strategy range`` and ``genomes``, and
+   through the two-process ``--num-processes 2`` build on the one card.
+   Each tree must equal the slice's file for file (one writer per file, so
+   byte for byte; the range build's pandict.npz must be the slice's
+   dictionary mixed), the mesh builds go through ``build_index`` (the
+   CLI's call), whose rank must launch each kernel of its path
+   (MESH_KERNELS) once per chunk and the others never (the rank's own
+   counts, sent back by parallel.mesh.launch), and ``--mesh 2`` must
+   raise naming the card count.  Prints each build's wall, its dict and
+   anchor stage walls, and the rank's peak device memory beside the
+   one-device build's.
+9. Layout phase: ~1e8 mixed keys drawn on the card (W=1) laid out by
+   BucketedDict.build_device, the single-pass route, the chunked route and
+   the single-pass route of the keys shuffled; the tables must be equal and
+   a sample of keys must find their masks.  Each of these routes and the
+   range-sharded layout (low-bit buckets, "bucket" mode) must hold its
+   transients within lookup.layout_bytes and above MODEL_FLOOR of it.
+10. Prints the kernels JSON line, the card line, and last
    {"ok": true, "device": {...}}.  Any failed check raises, so the script
    exits non-zero without that line; so does a machine without CUDA.
 """
@@ -71,6 +85,9 @@ GENE_EVERY, REPEAT_EVERY = 5_000, 50_000
 UMAP_BIN = 100_000
 DICT_KEYS = 13_000_000    # kernel-phase table: the slice's dictionary size
 LAYOUT_KEYS = 100_000_000  # layout phase: a ~1e8-key W=1 table
+# the share of its lookup.layout_bytes model a layout's measured transients
+# must reach: the model may over-count by at most a fifth
+MODEL_FLOOR = 0.8
 MOSAIC_SIZES = (1024, 1 << 24)
 REPS = 10
 
@@ -300,9 +317,10 @@ def count_peaks(pipeline, peaks: list):
     return real, counted
 
 
-def slice_phase(work: str, card: str) -> tuple[dict, dict]:
+def slice_phase(work: str, card: str) -> tuple[dict, dict, int]:
     """Drive the index build through the CLI and check what it wrote.
-    Returns the launch counts of the run and the generated sequences."""
+    Returns the launch counts of the run, the generated sequences and the
+    build's peak device memory after its count stage."""
     from panagram_tpu_torch import pipeline
     from panagram_tpu_torch.__main__ import main
     from panagram_tpu_torch.io.bgzf import BgzfReader, decompress_file
@@ -326,6 +344,9 @@ def slice_phase(work: str, card: str) -> tuple[dict, dict]:
     finally:
         pipeline.count_genome = real
     wall = time.perf_counter() - t0
+    # count_peaks resets the peak before each genome's count: this is the
+    # peak of the last count and of every stage after it
+    build_peak = torch.cuda.max_memory_allocated()
     launches = dict(kernels.launches)
     print(f"index build: {wall:.2f} s wall, launches {launches}", flush=True)
     for name in ANCHOR_KERNELS:
@@ -403,8 +424,8 @@ def slice_phase(work: str, card: str) -> tuple[dict, dict]:
     print(f"anchored k-mers/s [{card}]: {len(ANCHORS) * nk / anchor_s:.4g} "
           f"({len(ANCHORS)} x {nk} positions in {anchor_s:.3f} s of anchor "
           f"stages); peak device memory after the count stage "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return launches, seqs
+          f"{build_peak / 2**30:.3f} GiB", flush=True)
+    return launches, seqs, build_peak
 
 
 class _Lines(logging.Handler):
@@ -569,8 +590,9 @@ def check_gene_rows(rows, popc, N: int, what: str, oracle_limit=None):
     return checked
 
 
-def same_trees(a: str, b: str) -> int:
-    """Every file of tree a but logs/ and config.yaml equals b's;
+def same_trees(a: str, b: str, what: str = "--cores 3 and --cores 1",
+               skip=("config.yaml",)) -> int:
+    """Every file of tree a but logs/ and the names in skip equals b's;
     anno_types.txt as a set of lines.  Returns the files compared."""
     n = 0
     for root, _, files in os.walk(a):
@@ -578,7 +600,7 @@ def same_trees(a: str, b: str) -> int:
         if rel.split(os.sep)[0] == "logs":
             continue
         for fn in files:
-            if fn == "config.yaml":
+            if fn in skip:
                 continue
             p, q = os.path.join(root, fn), os.path.join(b, rel, fn)
             if fn == "anno_types.txt":
@@ -587,7 +609,7 @@ def same_trees(a: str, b: str) -> int:
             else:
                 same = filecmp.cmp(p, q, shallow=False)
             if not same:
-                raise AssertionError(f"--cores 3 and --cores 1 differ: {rel}/{fn}")
+                raise AssertionError(f"{what} differ: {rel}/{fn}")
             n += 1
     return n
 
@@ -760,6 +782,121 @@ def full_index_phase(work: str, seqs: dict, card: str, dev) -> dict:
     return launches
 
 
+# the kernels of each mesh strategy's path: the range strategy's local
+# probe is a row gather at the low-bit bucket (panagram_tpu's _local_probe
+# is an XLA gather), so probe_sorted runs only in the genome strategy
+MESH_KERNELS = {"range": ["pack_mix", "fused_popcount_colsums",
+                          "masks_to_bytes"],
+                "genomes": ANCHOR_KERNELS}
+
+
+def mesh_phase(work: str, card: str, dev, slice_peak: int) -> dict:
+    """The slice's genomes through --mesh 1 (one rank on NCCL) under both
+    strategies and through the two-process --num-processes 2 build on the
+    one card; each tree must equal the default build's (the range build's
+    pandict.npz is its dictionary mixed), each rank of a mesh build must
+    launch each kernel of its path once per chunk and the others never
+    (its own counts, sent back by parallel.mesh.launch), and --mesh 2 must
+    raise naming the card count.  Prints each rank's peak device memory
+    beside the one-device build's (slice_peak).  Returns the launches of
+    each mesh build."""
+    from panagram_tpu_torch.ops.dictionary import PanKmerDict
+    from panagram_tpu_torch.ops.lookup import mix64_np
+    from panagram_tpu_torch.pipeline import build_index
+
+    ref = os.path.join(work, "idx")
+    samples = os.path.join(work, "samples.tsv")
+    args = ["index", samples, "-k", str(K), "--anchor-genomes", *ANCHORS,
+            "--device", dev.type]
+    chunks = len(ANCHORS) * -(-(GENOME_BP - K + 1) // CHUNK)
+    out = {}
+    for strategy in ("range", "genomes"):
+        prefix = os.path.join(work, f"idx_mesh_{strategy}")
+        t0 = time.perf_counter()
+        idx = build_index(samples, prefix=prefix, k=K,
+                          anchor_genomes=list(ANCHORS),
+                          device=dev.type, mesh_devices=1,
+                          mesh_strategy=strategy)
+        wall = time.perf_counter() - t0
+        (rank,) = idx.mesh_ranks
+        launches = out[strategy] = rank.launches
+        print(f"index --mesh 1 --mesh-strategy {strategy}: {wall:.2f} s "
+              f"wall (one spawned rank), rank 0 launches {launches}",
+              flush=True)
+        for name in ANCHOR_KERNELS:
+            want = chunks if name in MESH_KERNELS[strategy] else 0
+            if launches[name] != want:
+                raise AssertionError(
+                    f"--mesh 1 {strategy}: kernel {name} launched "
+                    f"{launches[name]} times, not {want} ({chunks} chunks)")
+        print(f"  each kernel of the path launched once per chunk ({chunks})"
+              f"; peak device memory [{card}]: rank 0 "
+              f"{rank.peak_bytes / 2**30:.3f} GiB (to the end of its dict "
+              f"stage {rank.value['dict_peak_bytes'] / 2**30:.3f} GiB), the "
+              f"one-device build {slice_peak / 2**30:.3f} GiB", flush=True)
+        skip = ("config.yaml", "pandict.npz") if strategy == "range" \
+            else ("config.yaml",)
+        n = same_trees(prefix, ref, f"--mesh 1 {strategy} and the default "
+                       "build", skip)
+        print(f"  tree equals the default build's ({n} files)", flush=True)
+        walls = stage_walls(prefix)
+        print(f"  stage walls [{card}]: "
+              + " ".join(f"{st}={walls[st]:.3f}s" for st in
+                         ["dict"] + [f"anchor.{a}" for a in ANCHORS]),
+              flush=True)
+        for a in ANCHORS:
+            with open(os.path.join(prefix, "logs", f"anchor.{a}.log.txt")) as f:
+                phases = [line for line in f if "anchor phases:" in line]
+            print(f"  {a} {phases[-1].split('] ', 1)[1].strip()}", flush=True)
+    want = PanKmerDict.load(os.path.join(ref, "kmc", "pandict.npz"))
+    got = PanKmerDict.load(os.path.join(work, "idx_mesh_range", "kmc",
+                                        "pandict.npz"))
+    mixed = mix64_np(want.keys)
+    order = np.argsort(mixed)
+    if got.key_space != "mixed" or not np.array_equal(got.keys, mixed[order]) \
+            or not np.array_equal(got.masks, want.masks[order]):
+        raise AssertionError("--mesh 1 range pandict.npz is not the default "
+                             "dictionary in mixed space")
+    print(f"  range pandict.npz: the default {len(want)} keys, mixed and in "
+          "unsigned order", flush=True)
+
+    prefix = os.path.join(work, "idx_2proc")
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "panagram_tpu_torch", *args, "--prefix", prefix,
+         "--num-processes", "2", "--process-id", str(pid)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in (0, 1)]
+    try:
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("--num-processes 2: "
+                             + " | ".join(e[-2000:] for e in errs))
+    n = same_trees(prefix, ref, "--num-processes 2 and the default build")
+    print(f"index --num-processes 2 (two processes, one card): {wall:.2f} s "
+          f"wall; tree equals the default build's ({n} files)", flush=True)
+
+    visible = torch.cuda.device_count()
+    try:
+        build_index(samples, prefix=os.path.join(work, "idx_mesh_over"), k=K,
+                    device="cuda", mesh_devices=visible + 1)
+    except RuntimeError as e:
+        if f"{visible} are visible" not in str(e):
+            raise
+        print(f"--mesh {visible + 1} on {visible} card(s) raises: {e}",
+              flush=True)
+    else:
+        raise AssertionError(f"--mesh {visible + 1} on {visible} card(s) "
+                             "did not raise")
+    return out
+
+
 def layout_phase(dev, card: str):
     """~1e8 mixed keys (W=1) laid out through build_device, the single-pass
     route and the chunked route; the tables must be equal."""
@@ -794,13 +931,29 @@ def layout_phase(dev, card: str):
           f"(with the retry), peak {build_peak / 2**30:.2f} GiB above the "
           "inputs", flush=True)
 
-    for name, run, model in (
+    # each route's transients beside its table and its inputs must stay
+    # within lookup.layout_bytes, the figure layout_route decides by, and
+    # above MODEL_FLOOR of it (a model far above the need refuses builds
+    # that fit)
+    perm = torch.randperm(D, generator=g, device=dev)
+    shuffled = (m[perm], masks[perm])
+    del perm
+    B = 1 << nbits
+    low_bits = m & (B - 1)
+    inputs = (8 + 4) * D
+    for name, run, mode in (
             ("single", lambda: lookup._layout_device(m, masks, nbits, cap,
                                                      stride, pre_sorted=True),
-             lookup.layout_bytes(D, 1, "sorted") - 12 * D),
+             "sorted"),
             ("chunked", lambda: lookup._layout_device_chunked(
-                m, masks, nbits, cap, stride),
-             lookup.layout_bytes(D, 1, "chunked") - 12 * D)):
+                m, masks, nbits, cap, stride), "chunked"),
+            ("single, unsorted input", lambda: lookup._layout_device(
+                *shuffled, nbits, cap, stride), "sort"),
+            ("range shard, low bits", lambda: lookup.layout_rows(
+                m, masks, low_bits, B, cap, stride), "bucket")):
+        # the bucket mode's bucket ids are an input too
+        model = lookup.layout_bytes(D, 1, mode, n_buckets=B) - inputs \
+            - (8 * D if mode == "bucket" else 0)
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
@@ -808,14 +961,25 @@ def layout_phase(dev, card: str):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         trans = torch.cuda.max_memory_allocated() - before - table.numel() * 4
-        if int(overflow) != 0 or not torch.equal(got, table):
+        if mode == "bucket":
+            # another bucketing: its own table, checked for overflow only
+            same = f"its own table, overflow {int(overflow)}"
+        elif int(overflow) != 0 or not torch.equal(got, table):
             raise AssertionError(f"{name} layout at 2^{nbits}: overflow "
                                  f"{int(overflow)}, tables differ")
+        else:
+            same = "equal table, overflow 0"
         del got
-        print(f"  {name:8s} route at 2^{nbits}: {wall:.3f} s, equal table, "
-              f"overflow 0; transients beside its table and the inputs "
-              f"{trans / 2**30:.2f} GiB (byte model {model / 2**30:.2f} GiB)",
+        print(f"  {name:22s} route at 2^{nbits}: {wall:.3f} s, {same}; "
+              f"transients beside its table and the inputs "
+              f"{trans / 2**30:.3f} GiB (layout_bytes model "
+              f"{model / 2**30:.3f} GiB, ratio {trans / model:.3f})",
               flush=True)
+        if not MODEL_FLOOR * model <= trans <= model:
+            raise AssertionError(
+                f"{name} layout: transients {trans} B outside "
+                f"[{MODEL_FLOOR} x, 1 x] the layout_bytes model {model} B")
+    del shuffled, low_bits
 
     # a sample of keys finds its masks, absent keys find nothing
     idx = torch.randint(0, D, (1 << 20,), generator=g, device=dev)
@@ -858,9 +1022,10 @@ def main():
     mosaic, mosaic_launches = mosaic_phase(dev)
 
     with tempfile.TemporaryDirectory() as work:
-        launches, seqs = slice_phase(work, card)
+        launches, seqs, slice_peak = slice_phase(work, card)
         device_dict_phase(work, card)
         full_index_phase(work, seqs, card, dev)
+        mesh_phase(work, card, dev, slice_peak)
     launches["mosaic_probe"] = mosaic_launches
     layout_phase(dev, card)
 

@@ -2,8 +2,10 @@
      python -m panagram_tpu_torch annotate idx genome genes.gff
 
 The ``index`` and ``annotate`` subcommands of panagram_tpu's CLI with the
-same flags, run on one device (``--device``, default cuda).  ``--mesh`` is
-accepted only to say that the port does not build it yet.
+same flags, run on one device (``--device``, default cuda), or with
+``--mesh N`` on N ranks of one device each; ``--num-processes`` builds from
+several processes (with ``--mesh``: one mesh across them, meeting at
+``--coordinator``; without: coordinated through files).
 """
 
 from __future__ import annotations
@@ -36,7 +38,23 @@ def _add_index(sub):
                    help="count and merge every genome on the device in one "
                         "stage (no per-genome k-mer set files)")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="not ported yet: raises")
+                   help="build on a mesh of N ranks, one per device "
+                        "(torch.distributed: NCCL on cuda:0..N-1, Gloo with "
+                        "--device cpu): distributed dictionary merge and "
+                        "sharded anchoring; the same files as the one-device "
+                        "build")
+    p.add_argument("--mesh-strategy", choices=("range", "genomes"),
+                   default="range",
+                   help="mesh sharding: 'range' = key-range-sharded dict + "
+                        "sequence sharding; 'genomes' = mask words split "
+                        "across devices (for large genome counts)")
+    p.add_argument("--num-processes", type=int, default=1,
+                   help="distributed build: total processes/hosts")
+    p.add_argument("--process-id", type=int, default=0,
+                   help="distributed build: this process's id")
+    p.add_argument("--coordinator", default=None,
+                   help="torch.distributed rendezvous address (host:port) of "
+                        "a multi-process --mesh build, served by process 0")
     return p
 
 
@@ -58,6 +76,15 @@ def _run_index(args):
     from .index import Index
     from .pipeline import build_index
 
+    if args.mesh_strategy != "range" and not args.mesh:
+        raise SystemExit(
+            "--mesh-strategy requires --mesh N (it selects how the mesh "
+            "is sharded)")
+    if args.mesh and args.num_processes > 1 and not args.coordinator:
+        raise SystemExit(
+            "--mesh with --num-processes runs ONE collective engine across "
+            "processes (torch.distributed) and needs --coordinator host:port")
+
     params = dict(
         k=args.k,
         cores=args.cores,
@@ -74,10 +101,40 @@ def _run_index(args):
         print(f"Prepared index at {idx.prefix}. "
               f"Run 'python -m panagram_tpu_torch index {idx.prefix}' to build.")
         return
-    idx = build_index(args.input, prefix=args.prefix, force=args.force,
-                      device=args.device, device_dict=args.device_dict,
-                      mesh_devices=args.mesh, **params)
-    print(f"Index built at {idx.prefix}")
+    build = dict(force=args.force, device=args.device,
+                 device_dict=args.device_dict, mesh_devices=args.mesh,
+                 mesh_strategy=args.mesh_strategy, **params)
+    if args.mesh and args.num_processes > 1:
+        # one mesh across processes: process i writes under <prefix>.p<i>;
+        # by default each writes its ranks' bitmap rows as pieces that
+        # process 0 stitches (PANAGRAM_TPU_SHARD_WRITES=0: full mirrors).
+        # Start every process from equivalent stage states (fresh dirs or
+        # --force): a stage one skips and another runs is refused
+        if not args.prefix:
+            raise SystemExit("--mesh with --num-processes requires -o PREFIX")
+        prefix = args.prefix.rstrip("/")
+        if args.process_id:
+            prefix += f".p{args.process_id}"
+        idx = build_index(args.input, prefix=prefix,
+                          num_processes=args.num_processes,
+                          process_id=args.process_id,
+                          coordinator=args.coordinator, **build)
+        print(f"Index built at {idx.prefix} "
+              f"(process {args.process_id}/{args.num_processes})")
+    elif args.num_processes > 1:
+        from .parallel.distributed import build_index_distributed
+
+        idx = build_index_distributed(
+            args.input, prefix=args.prefix, num_processes=args.num_processes,
+            process_id=args.process_id, force=args.force, device=args.device,
+            **params)
+        if idx is not None:
+            print(f"Index built at {idx.prefix}")
+        else:
+            print(f"Process {args.process_id} finished its shard")
+    else:
+        idx = build_index(args.input, prefix=args.prefix, **build)
+        print(f"Index built at {idx.prefix}")
 
 
 def _run_annotate(args):
@@ -93,7 +150,7 @@ def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = argparse.ArgumentParser(
         prog="panagram_tpu_torch",
-        description="Pan-genome k-mer index build on one PyTorch device")
+        description="Pan-genome k-mer index build on PyTorch devices")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_index(sub)
     _add_annotate(sub)

@@ -43,8 +43,10 @@ NAME_REGEX = "[A-Za-z0-9_-]+"
 ANCHOR_DIR = "anchor"
 FASTQ_EXTS = (".fastq", ".fastq.gz", ".fq", ".fq.gz")
 
-# positions per streamed anchor chunk (upper end of the pow2 ladder)
-ANCHOR_CHUNK = 1 << 22
+# positions per streamed anchor chunk (upper end of the pow2 ladder);
+# panagram_tpu's knob of the same name sets it for runs and tests that need
+# many small chunks
+ANCHOR_CHUNK = 1 << int(os.environ.get("PANAGRAM_TPU_CHUNK_LOG2", "22"))
 
 # strings pandas.read_csv reads as missing by default; samples.tsv fields
 # holding one of these are treated as absent, as panagram_tpu treats them
@@ -140,6 +142,8 @@ class Index:
 
     def __init__(self, input, prefix=None, **params):
         self.conf = IndexConfig()
+        # a mesh build's per-rank reports (pipeline.build_index)
+        self.mesh_ranks = None
         if os.path.isdir(input):
             self.prefix = input
             if not (os.path.isfile(config_path(input))
@@ -324,6 +328,30 @@ class Genome:
     def bitmap_gzi_fname(self, step):
         return os.path.join(self.prefix, f"bitmap.{step}.gzi")
 
+    def _peer_anchor_dir(self, pid: int, me: int) -> str:
+        """Process `pid`'s anchor directory of this genome, seen from
+        process `me`, under the convention of a multi-process mesh build:
+        process 0 writes under the bare prefix, process i under
+        '<prefix>.p<i>', all on one shared filesystem."""
+        base = self.index.prefix.rstrip("/")
+        if me and base.endswith(f".p{me}"):
+            base = base[:-len(f".p{me}")]
+        if pid:
+            base = f"{base}.p{pid}"
+        return os.path.join(base, ANCHOR_DIR, self.name)
+
+    def _bitmap_piece_fname(self, step, pid: int, me: int, peer=False):
+        """Piece file of process `pid` for a multi-process bitmap write;
+        each process writes under its own prefix, and peer=True resolves
+        process pid's directory, so that process 0 can stitch."""
+        adir = self._peer_anchor_dir(pid, me) if peer else self.prefix
+        return os.path.join(adir, f".bitmap.{step}.p{pid}.part")
+
+    def primary_bitmap_fname(self, step, me: int) -> str:
+        """Where the stitched bitmap of a multi-process build lives: under
+        process 0's prefix (the others keep only the derived tables)."""
+        return os.path.join(self._peer_anchor_dir(0, me), f"bitmap.{step}.gz")
+
     def init_chrs(self):
         """Chromosome table from the FASTA index; size = L - k + 1, clamped
         at 0 for records shorter than k."""
@@ -357,21 +385,52 @@ class Genome:
             binlen = nkmers // self.index.conf.min_bin_count
         return max(int(binlen), 1)
 
-    def run_anchor(self, bucketed):
-        """Anchor this genome against `bucketed` (a BucketedDict whose table
-        is on the compute device) and write its anchor/<name>/ files."""
-        from .ops.anchor import stream_anchor_chunks
-
+    def run_anchor(self, bucketed=None, mesh=None, sharded=None):
+        """Anchor this genome and write its anchor/<name>/ files: against
+        `bucketed` (a BucketedDict whose table is on the compute device),
+        or, called by every rank of `mesh`, against `sharded` (this rank's
+        part of a parallel.shard dictionary).  On a mesh only writer ranks
+        write; with per-process piece writes (range strategy, several
+        processes, parallel.mesh.sharded_writes_enabled) each writer writes
+        its ranks' bitmap rows as pieces and process 0 stitches them."""
         if not self.anchored:
             logger.info(f"Skipping non-anchor genome '{self.name}'")
             return
-        os.makedirs(self.prefix, exist_ok=True)
         k = self.index.k
         N = self.ngenomes
         nbytes = self.nbytes
         lowres = self.index.lowres_step
         if self.chrs is None:
             self.init_chrs()
+        chunk = self._anchor_chunk()
+        pieces = False
+        if mesh is None:
+            from .ops.anchor import stream_anchor_chunks
+
+            def chunks(codes, nkmers):
+                return stream_anchor_chunks(codes, nkmers, chunk, bucketed,
+                                            nbytes, N, k)
+        else:
+            from .parallel.mesh import barrier, sharded_writes_enabled
+            from .parallel.shard import ShardedBucketedDict, stream_mesh_chunks
+
+            pieces = (isinstance(sharded, ShardedBucketedDict)
+                      and sharded_writes_enabled(mesh))
+
+            def chunks(codes, nkmers):
+                return stream_mesh_chunks(mesh, sharded, codes, nkmers, chunk,
+                                          nbytes, N, k, pieces)
+
+            if not mesh.writer:
+                # the collectives of every chunk, nothing written
+                for _, seq in iter_fasta(self._fasta_path):
+                    codes = seq_to_codes(seq)
+                    for _ in chunks(codes, len(codes) - k + 1):
+                        pass
+                if pieces:
+                    barrier(mesh)
+                return
+        os.makedirs(self.prefix, exist_ok=True)
         genes, by_chrom = None, {}
         if self.annotated:
             genes = self._init_gff()
@@ -380,10 +439,20 @@ class Genome:
         for c in self.chrs:
             c[3] = len(by_chrom.get(c[0], ()))
 
-        writers = {s: BgzfWriter(self.bitmap_gz_fname(s)) for s in self.steps}
+        if pieces:
+            from .io.bgzf import BgzfPieceWriter, stitch_bgzf_pieces
+
+            me = mesh.process_index
+            writers = {s: BgzfPieceWriter(self._bitmap_piece_fname(s, me, me))
+                       for s in self.steps}
+        else:
+            writers = {s: BgzfWriter(self.bitmap_gz_fname(s))
+                       for s in self.steps}
         bin_rows = []  # (chr_id, start, counts[0..N])
         paircount_sums = np.zeros(N, np.int64)
-        chunk = self._anchor_chunk()
+        # rows (step 1) and low-resolution rows of the chromosomes before
+        # this one: where a piece goes in the whole bitmap
+        base1 = base_low = 0
         phase = {"encode": 0.0, "drain": 0.0, "write": 0.0, "bins": 0.0}
         logger.info("Anchoring Started")
         try:
@@ -400,8 +469,7 @@ class Genome:
                 hist = np.zeros((nbins, N + 1), np.int64)
                 popc_full = np.empty(nkmers, np.int16) if genes else None
 
-                it = stream_anchor_chunks(codes, nkmers, chunk, bucketed,
-                                          nbytes, N, k)
+                it = chunks(codes, nkmers)
                 while True:
                     t0 = time.perf_counter()
                     item = next(it, None)
@@ -410,11 +478,21 @@ class Genome:
                         break
                     start, m, by, popc, chunk_colsums = item
                     t0 = time.perf_counter()
-                    writers[1].write(by)
-                    # global-phase low-resolution rows: every lowres-th
-                    # position of the chromosome
-                    first = (-start) % lowres
-                    writers[lowres].write(by[first::lowres].tobytes())
+                    if pieces:
+                        for row0, piece in by:
+                            p0 = start + row0   # position in the chromosome
+                            writers[1].write_piece((base1 + p0) * nbytes, piece)
+                            sel = piece[(-p0) % lowres::lowres]
+                            if sel.shape[0]:
+                                lr = base_low + (p0 + lowres - 1) // lowres
+                                writers[lowres].write_piece(lr * nbytes,
+                                                            sel.tobytes())
+                    else:
+                        writers[1].write(by)
+                        # global-phase low-resolution rows: every lowres-th
+                        # position of the chromosome
+                        first = (-start) % lowres
+                        writers[lowres].write(by[first::lowres].tobytes())
                     phase["write"] += time.perf_counter() - t0
                     t0 = time.perf_counter()
                     bins = (start + np.arange(m)) // binlen
@@ -427,6 +505,8 @@ class Genome:
                     phase["bins"] += time.perf_counter() - t0
                 for b in range(nbins):
                     bin_rows.append((chrom_i, b * binlen, hist[b]))
+                base1 += nkmers
+                base_low += -(-nkmers // lowres)
                 logger.info(f"Anchored {chrom}")
                 if chrom in by_chrom:
                     self._add_gene_hists(by_chrom[chrom], chrom, popc_full, 0)
@@ -434,8 +514,21 @@ class Genome:
         finally:
             for w in writers.values():
                 w.close()
-        for s in self.steps:
-            writers[s].write_gzi(self.bitmap_gzi_fname(s))
+        if pieces:
+            # every process's pieces are complete before process 0 stitches
+            barrier(mesh)
+            if me == 0:
+                for s in self.steps:
+                    paths = [self._bitmap_piece_fname(s, p, me, peer=True)
+                             for p in range(mesh.process_count)]
+                    stitch_bgzf_pieces(paths, self.bitmap_gz_fname(s),
+                                       self.bitmap_gzi_fname(s))
+                    for path in paths:
+                        os.remove(path)
+                        os.remove(path + ".manifest.npy")
+        else:
+            for s in self.steps:
+                writers[s].write_gzi(self.bitmap_gzi_fname(s))
 
         self._write_paircounts(paircount_sums)
         if genes is not None:
@@ -448,6 +541,12 @@ class Genome:
                         + "\t".join(str(int(c)) for c in counts) + "\n")
         self.write_chrs()
 
+        if pieces and me != 0:
+            # the stitched bitmap lives under process 0's prefix: nothing
+            # here to embed
+            logger.info("anchor phases: " + " ".join(
+                f"{name}={v:.3f}s" for name, v in phase.items()))
+            return
         t0 = time.perf_counter()
         try:
             self.write_umaps()

@@ -10,6 +10,9 @@ readers consume:
   uncompressed_off: u64] * n_entries)`` listing the start of every block
   after the first.
 
+``BgzfPieceWriter`` and ``stitch_bgzf_pieces`` write one file from several
+processes (panagram_tpu's multi-host bitmap writes).
+
 Blocks are compressed with zlib at level 6 as raw deflate (wbits -15), the
 settings of panagram_tpu's writer, so the same input gives the same bytes.
 """
@@ -136,12 +139,19 @@ class BgzfWriter:
             for c, u in self._blocks:
                 f.write(struct.pack("<QQ", c, u))
 
-    def close(self):
+    def tell(self) -> int:
+        """Compressed bytes written so far (where the next block starts)."""
+        return self._coffset
+
+    def close(self, eof: bool = True):
+        """Flush, append the EOF marker (unless eof=False: a piece that
+        stitch_bgzf_pieces joins to others) and close."""
         if self._closed:
             return
         try:
             self.flush()
-            self._fh.write(EOF_MARKER)
+            if eof:
+                self._fh.write(EOF_MARKER)
         finally:
             self._closed = True
             self._fh.close()
@@ -153,6 +163,80 @@ class BgzfWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class BgzfPieceWriter:
+    """One process's share of a bitmap written by several processes (a
+    multi-process mesh build): ``write_piece(u_start, data)`` writes a run
+    of rows as whole BGZF blocks and records where the run belongs in the
+    whole uncompressed stream; ``close()`` saves that manifest beside the
+    piece file (<path>.manifest.npy) and writes no EOF marker.
+    ``stitch_bgzf_pieces`` joins the processes' pieces in stream order
+    without recompressing: the result differs from one writer's file only
+    in where blocks end, not in its decompressed bytes."""
+
+    def __init__(self, path: str, level: int = 6):
+        self.path = str(path)
+        self._w = BgzfWriter(path, level)
+        # (uncompressed start in the stream, compressed offset, compressed
+        #  length, uncompressed length) per piece
+        self.manifest: list[tuple[int, int, int, int]] = []
+
+    def write_piece(self, u_start: int, data):
+        w = self._w
+        c0 = w.tell()
+        n = w.write(data)
+        if n == 0:
+            return
+        w.flush()
+        self.manifest.append((u_start, c0, w.tell() - c0, n))
+
+    def close(self):
+        self._w.close(eof=False)
+        np.save(self.path + ".manifest.npy",
+                np.asarray(self.manifest, dtype="<u8").reshape(-1, 4))
+
+
+def stitch_bgzf_pieces(piece_paths: list, out_path: str,
+                       gzi_path: str | None = None) -> int:
+    """Join piece files of BgzfPieceWriter into one BGZF file (+ .gzi) in
+    stream order: a byte copy of whole blocks, then one EOF marker.  A gap
+    in the uncompressed coverage raises.  Returns the uncompressed size."""
+    runs = []  # (u_start, path, compressed offset, compressed len, u_len)
+    for p in piece_paths:
+        for u_start, c_off, c_len, u_len in np.load(str(p) + ".manifest.npy"):
+            runs.append((int(u_start), str(p), int(c_off), int(c_len),
+                         int(u_len)))
+    runs.sort(key=lambda r: r[0])
+    tmp = f"{out_path}.tmp.{os.getpid()}"
+    total = 0
+    handles = {}
+    try:
+        with open(tmp, "wb") as out:
+            for u_start, path, c_off, c_len, u_len in runs:
+                if u_start != total:
+                    raise ValueError(
+                        f"{out_path}: piece coverage gap at uncompressed "
+                        f"offset {total} (next piece starts {u_start})")
+                fh = handles.get(path)
+                if fh is None:
+                    fh = handles[path] = open(path, "rb")
+                fh.seek(c_off)
+                left = c_len
+                while left:
+                    buf = fh.read(min(left, 1 << 20))
+                    if not buf:
+                        raise ValueError(f"{path}: truncated piece file")
+                    out.write(buf)
+                    left -= len(buf)
+                total += u_len
+            out.write(EOF_MARKER)
+    finally:
+        for fh in handles.values():
+            fh.close()
+    os.replace(tmp, out_path)
+    build_gzi(out_path, gzi_path)
+    return total
 
 
 def load_gzi(path: str) -> np.ndarray:

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import struct
+import zipfile
 
 import numpy as np
 import torch
@@ -39,6 +41,33 @@ def _merge_sets(keys: torch.Tensor, gids: torch.Tensor, nwords: int):
     masks.index_put_((seg, g // 32), torch.ones_like(g) << (g % 32),
                      accumulate=True)
     return out_keys, masks
+
+
+def npz_member(path: str, name: str, mmap: bool = False) -> np.ndarray:
+    """Array `name` of the .npz at `path`.  With mmap=True a member stored
+    uncompressed (np.savez's) is mapped read-only where it lies in the
+    archive, so that slicing it reads only the slice's pages; a compressed
+    or empty member is loaded whole."""
+    if mmap:
+        with zipfile.ZipFile(path) as zf:
+            info = zf.getinfo(name + ".npy")
+        if info.compress_type == zipfile.ZIP_STORED:
+            with open(path, "rb") as f:
+                f.seek(info.header_offset + 26)
+                n_name, n_extra = struct.unpack("<HH", f.read(4))
+                f.seek(n_name + n_extra, os.SEEK_CUR)
+                fmt = np.lib.format
+                read = {(1, 0): fmt.read_array_header_1_0,
+                        (2, 0): fmt.read_array_header_2_0}.get(
+                            fmt.read_magic(f))
+                if read is not None:
+                    shape, fortran, dtype = read(f)
+                    offset = f.tell()
+            if read is not None and int(np.prod(shape)) > 0:
+                return np.memmap(path, dtype, "r", offset, shape,
+                                 "F" if fortran else "C")
+    with np.load(path) as z:
+        return z[name]
 
 
 @dataclasses.dataclass
@@ -72,11 +101,14 @@ class PanKmerDict:
         os.replace(tmp, path)
 
     @classmethod
-    def load(cls, path: str) -> "PanKmerDict":
-        z = np.load(path)
-        key_space = str(z["key_space"]) if "key_space" in z else "canon"
-        return cls(z["keys"], z["masks"], int(z["ngenomes"]), int(z["k"]),
-                   key_space)
+    def load(cls, path: str, mmap: bool = False) -> "PanKmerDict":
+        """The dictionary saved at `path`; mmap=True maps keys and masks
+        read-only (npz_member) for a reader that slices them."""
+        with np.load(path) as z:
+            key_space = str(z["key_space"]) if "key_space" in z else "canon"
+            ngenomes, k = int(z["ngenomes"]), int(z["k"])
+        return cls(npz_member(path, "keys", mmap),
+                   npz_member(path, "masks", mmap), ngenomes, k, key_space)
 
     def pairwise_shared(self, device="cpu",
                         block: int = PAIRWISE_BLOCK) -> np.ndarray:

@@ -96,26 +96,87 @@ def table_geometry(D: int, W: int, mean_load: int | None = None):
     return nbits, cap, stride
 
 
-def layout_bytes(D: int, W: int, mode: str,
-                 piece_rows: int = LAYOUT_PIECE_ROWS) -> int:
-    """Device memory a layout of D keys x W mask words needs beside its
-    table: the byte model of panagram_tpu.ops.lookup.check_hbm_budget.
+def _slot_peak(n: int, n_buckets: int) -> int:
+    """Peak of the slot computation of layout_rows / _layout_piece over n
+    rows and n_buckets buckets: bucket ids, slots and the gathered run
+    starts (int64 [n] each) beside the bucket counts and run starts (int64
+    [n_buckets + 1] each), or, while the starts are computed, two int64 [n]
+    beside three bucket arrays (_layout_piece keeps a fourth int64 [n])."""
+    b = 8 * (n_buckets + 1)
+    return max(24 * n + 2 * b, 16 * n + 3 * b)
 
-    * "sort": unsorted input; keys, masks and the grouping sort's copies,
-      ~4 x (8 + 4W) B/key;
-    * "sorted": input sorted in mixed space, no grouping sort; the inputs
-      plus the slot/base transients, (8 + 4W + 12) B/key;
-    * "chunked": the inputs plus one pass's transients, bounded by the
-      piece size.
-    (The host layout needs nothing beside the table on the device.)"""
-    per_key = 8 + 4 * W
-    if mode == "sort":
-        return 4 * per_key * D
+
+# a torch.sort of int64 [D] on the card holds six int64 [D]: its input, the
+# sorted values, the indices, the iota it sorts beside the keys and the
+# radix sort's alternate key and value buffers
+_SORT_BYTES_PER_KEY = 48
+# the scatter of _scatter_columns beside the table: the rows' flat offsets
+# (int64) and the column being written (its int64 shift and the int32
+# column)
+_SCATTER_BYTES_PER_KEY = 20
+# the small tensors beside the counted ones (pass bounds, the table's drop
+# area, overflow sums) and the caching allocator's rounding of each block
+# (up to 2 MiB a block)
+_SMALL_BYTES = 16 << 20
+
+
+def layout_bytes(D: int, W: int, mode: str,
+                 piece_rows: int = LAYOUT_PIECE_ROWS,
+                 n_buckets: int | None = None) -> int:
+    """Device memory a layout of D keys x W mask words needs beside its
+    table, counted from what layout_rows, _layout_piece and _piece_bounds
+    allocate on that route: its inputs, then the larger of its two phases,
+    which run one after the other (chip_smoke's layout phase checks the
+    count on the card):
+
+    * before the table is allocated: the grouping sorts and the slot
+      computation (_slot_peak); only what exceeds the table, which is not
+      there yet, counts beside it;
+    * beside the table: the scatter (_SCATTER_BYTES_PER_KEY) and whatever
+      sorted copies of the inputs are still alive.
+
+    The modes, with (8 + 4W) B/key of keys and masks:
+
+    * "sorted": input sorted in mixed space: no sort, no copies;
+    * "sort": unsorted input: one sort, then sorted copies of keys and
+      masks through the slot computation and the scatter;
+    * "bucket": an explicit bucket per key (the range-sharded layout), an
+      input too (8/key): two sorts, the second beside the masked bucket ids
+      and the first sort's order (16/key), then the sorted copies and the
+      bucket ids;
+    * "chunked": sorted input laid out in passes: the flipped keys that
+      place the passes (8/key) before the table, then one pass at a time
+      beside it (_slot_peak over its rows and buckets and one int64 [n]
+      more).  Mixed keys are uniform, so a pass holds its share of the
+      rows within a fraction of a percent; 1/64 more is allowed for.
+
+    n_buckets defaults to the table_geometry of D keys.  (The host layout
+    needs nothing beside the table on the device.)"""
+    nbits, _, stride = table_geometry(max(D, 1), W)
+    if n_buckets is None:
+        n_buckets = 1 << nbits
+    table = (n_buckets * stride + 2 + W) * 4
+    row = (8 + 4 * W) * D
+    inputs = row + _SMALL_BYTES
+    slots = _slot_peak(D, n_buckets)
+    scatter = _SCATTER_BYTES_PER_KEY * D
     if mode == "sorted":
-        return (per_key + 12) * D
-    if mode == "chunked":
-        return per_key * D + 40 * piece_rows
-    raise ValueError(f"layout mode {mode!r}")
+        before, beside = slots, scatter
+    elif mode == "sort":
+        before = max(_SORT_BYTES_PER_KEY * D, 8 * D + row, row + slots)
+        beside = row + scatter
+    elif mode == "bucket":
+        inputs += 8 * D
+        before = max((16 + _SORT_BYTES_PER_KEY) * D, 24 * D + row,
+                     row + slots)
+        beside = row + scatter
+    elif mode == "chunked":
+        P = chunked_layout_pieces(D, n_buckets.bit_length() - 1, piece_rows)
+        n = min(D, -(-D // P) * 65 // 64)
+        before, beside = 8 * D, 8 * n + _slot_peak(n, n_buckets // P)
+    else:
+        raise ValueError(f"layout mode {mode!r}")
+    return inputs + max(before - table, beside)
 
 
 def _free_bytes(device, free):

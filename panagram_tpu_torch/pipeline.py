@@ -17,6 +17,12 @@ and each stage that runs writes its wall time to logs/<stage>.benchmark.txt
 plus layout).  Every device step runs on the `device` given.  With
 cores > 1 the anchor genomes run in that many threads, each with its own
 CUDA stream, against the one bucket table.
+
+With mesh_devices=N (``--mesh N``) the same DAG runs on N ranks, one per
+device (parallel/): the writer rank counts, the dictionary is merged and
+sharded across the ranks, every rank anchors its share of each chunk, and
+the writer writes every file.  Stage-skip decisions are checked equal on
+every rank.
 """
 
 from __future__ import annotations
@@ -35,8 +41,20 @@ from .index import Index
 from .io.fasta import iter_fasta, seq_to_codes
 from .ops.count import counted_kmers_chunked, distinct_kmers_chunked
 from .ops.devdict import DeviceDictBuilder
-from .ops.dictionary import PanKmerDict, build_dictionary
+from .ops.dictionary import PanKmerDict, build_dictionary, npz_member
 from .ops.lookup import BucketedDict
+from .parallel.mesh import (
+    Mesh,
+    barrier,
+    launch,
+    lockstep_decision,
+    sharded_writes_enabled,
+)
+from .parallel.shard import (
+    shard_dictionary,
+    shard_dictionary_genomes,
+    sharded_build_dictionary,
+)
 
 logger = logging.getLogger(__name__)
 _LOG_FORMAT = "[%(asctime)s %(levelname)s] %(message)s"
@@ -200,26 +218,33 @@ def build_dict_device(index: Index, device: torch.device, force=False) -> str:
     return out
 
 
-def build_dict_stage(index: Index, device: torch.device, force=False) -> str:
-    """Stage dict: merge the per-genome sets; genome id = samples.tsv row,
-    and a genome without sequence contributes an empty set."""
-    out = index.dict_fname
-    set_files = [index.kmer_set_fname(n) for n in index.genome_names
-                 if index.genomes[n].fasta is not None]
-    if not force and _outputs_fresh([out], set_files):
-        return out
-    t0 = time.time()
+def _load_sets(index: Index, mmap: bool = False) -> list[np.ndarray]:
+    """The per-genome k-mer sets in genome-id (samples.tsv row) order; a
+    genome without sequence contributes an empty set.  mmap=True maps the
+    sets read-only (npz_member), for a rank that reads a slice of them."""
     sets = []
     for name in index.genome_names:
         if index.genomes[name].fasta is None:
             sets.append(np.zeros(0, np.uint64))
             continue
         f = index.kmer_set_fname(name)
-        z = np.load(f)
-        if int(z["k"]) != index.k:
-            raise ValueError(f"{f}: k={int(z['k'])} != index k={index.k}")
-        sets.append(z["kmers"])
-    d = build_dictionary(sets, index.k, ngenomes=index.ngenomes, device=device)
+        k = int(npz_member(f, "k"))
+        if k != index.k:
+            raise ValueError(f"{f}: k={k} != index k={index.k}")
+        sets.append(npz_member(f, "kmers", mmap))
+    return sets
+
+
+def build_dict_stage(index: Index, device: torch.device, force=False) -> str:
+    """Stage dict: merge the per-genome sets (_load_sets)."""
+    out = index.dict_fname
+    set_files = [index.kmer_set_fname(n) for n in index.genome_names
+                 if index.genomes[n].fasta is not None]
+    if not force and _outputs_fresh([out], set_files):
+        return out
+    t0 = time.time()
+    d = build_dictionary(_load_sets(index), index.k, ngenomes=index.ngenomes,
+                         device=device)
     d.save(out)
     _benchmark(index.prefix, "dict", t0)
     logger.info(f"dictionary: {len(d)} keys x {d.nwords} words")
@@ -250,11 +275,16 @@ def anchor_outputs(index: Index, name: str) -> list[str]:
                                            for s in index.steps]
 
 
-def anchor_stage(index: Index, name: str, bucketed: BucketedDict,
-                 per_stage_logfile=True):
+def anchor_stage(index: Index, name: str, bucketed: BucketedDict | None,
+                 per_stage_logfile=True, mesh=None, sharded=None):
     """Stage anchor[g], with its log in logs/anchor.<g>.log.txt when
     per_stage_logfile (a threaded run has no per-anchor log: the package
-    logger is shared by every thread, as panagram_tpu's threaded path)."""
+    logger is shared by every thread, as panagram_tpu's threaded path).
+    On a mesh every rank calls it with its `sharded` dictionary; only
+    writers log and time the stage."""
+    if mesh is not None and not mesh.writer:
+        index.genomes[name].run_anchor(mesh=mesh, sharded=sharded)
+        return
     t0 = time.time()
     handler = None
     pkg = logging.getLogger("panagram_tpu_torch")
@@ -264,7 +294,7 @@ def anchor_stage(index: Index, name: str, bucketed: BucketedDict,
         handler.setFormatter(logging.Formatter(_LOG_FORMAT, _LOG_DATEFMT))
         pkg.addHandler(handler)
     try:
-        index.genomes[name].run_anchor(bucketed)
+        index.genomes[name].run_anchor(bucketed, mesh, sharded)
     finally:
         if handler is not None:
             pkg.removeHandler(handler)
@@ -285,25 +315,115 @@ def dist_stage(index: Index, pan_dict: PanKmerDict | None,
     return out
 
 
+def build_dict_mesh(index: Index, mesh: Mesh, force=False):
+    """Stage dict of a range-strategy mesh build, on every rank: the
+    per-genome sets merged by the distributed builder (parallel/shard.py),
+    whose host copy the writers save as pandict.npz (mixed key space).  A
+    fresh pandict.npz is sharded instead; every rank must take the same
+    branch.  Each rank reads only its slice of the sets (or of the fresh
+    dictionary).  Returns (this rank's ShardedBucketedDict, the
+    PanKmerDict on writers, None on the other ranks)."""
+    out = index.dict_fname
+    set_files = [index.kmer_set_fname(n) for n in index.genome_names
+                 if index.genomes[n].fasta is not None]
+    fresh = lockstep_decision(mesh, "dict-cache", lambda: bool(
+        not force and _outputs_fresh([out], set_files)))
+    if fresh:
+        pan = PanKmerDict.load(out, mmap=not mesh.writer)
+        return shard_dictionary(pan, mesh), pan if mesh.writer else None
+    t0 = time.time()
+    sets = _load_sets(index, mmap=True)
+    t1 = time.time()
+    sbd, pan = sharded_build_dictionary(sets, mesh, ngenomes=index.ngenomes,
+                                        k=index.k)
+    del sets
+    t2 = time.time()
+    if mesh.writer:
+        pan.save(out)
+        _benchmark(index.prefix, "dict", t0)
+        logger.info(f"mesh dictionary: {len(pan)} keys x {pan.nwords} words "
+                    f"over {mesh.size} ranks; load {t1 - t0:.3f}s, build and "
+                    f"gather {t2 - t1:.3f}s, save {time.time() - t2:.3f}s")
+    return sbd, pan
+
+
+def _mesh_rank(mesh: Mesh, prefix: str, force: bool, strategy: str) -> dict:
+    """The build DAG on one rank of a mesh (parallel/mesh.launch): the
+    writer counts every genome, the dictionary is sharded by key range
+    (merged by the distributed builder) or by mask words (merged by the
+    writer), every anchor genome runs through the sharded engine, and the
+    writer writes the distances.  Returns the rank's peak device memory
+    up to the end of the dict stage ({"dict_peak_bytes": ...}; 0 on the
+    CPU)."""
+    logging.basicConfig(level=logging.INFO if mesh.writer else logging.WARNING,
+                        format=_LOG_FORMAT, datefmt=_LOG_DATEFMT)
+    index = Index(prefix)
+    dev = mesh.device
+    if mesh.writer:
+        for name in index.genome_names:
+            if index.genomes[name].fasta is not None:
+                count_genome(index, name, dev, force=force)
+    if strategy == "genomes":
+        if mesh.writer:
+            build_dict_stage(index, dev, force=force)
+        barrier(mesh)
+        pan = PanKmerDict.load(index.dict_fname, mmap=not mesh.writer)
+        sharded = shard_dictionary_genomes(pan, mesh)
+    else:
+        sharded, pan = build_dict_mesh(index, mesh, force=force)
+    dict_peak = (torch.cuda.max_memory_allocated(dev)
+                 if dev.type == "cuda" else 0)
+    pieces = strategy == "range" and sharded_writes_enabled(mesh)
+    for name in index.anchor_genomes:
+        g = index.genomes[name]
+        outs = anchor_outputs(index, name)
+        if pieces:
+            # the stitched bitmap exists only under process 0's prefix: every
+            # process decides on that copy, or a partial rerun desyncs
+            outs = outs[:2] + [g.primary_bitmap_fname(s, mesh.process_index)
+                               for s in index.steps]
+        skip = lockstep_decision(mesh, f"anchor-skip:{name}", lambda: bool(
+            not force and _outputs_fresh(
+                outs, [index.dict_fname, g._fasta_path])))
+        if not skip:
+            anchor_stage(index, name, None, mesh=mesh, sharded=sharded)
+    if mesh.writer:
+        dist_stage(index, pan, dev, force=force)
+    return {"dict_peak_bytes": dict_peak}
+
+
 def build_index(samples_or_dir: str, prefix=None, force=False,
                 device="cuda", device_dict=False, mesh_devices=None,
-                **params) -> Index:
-    """Run the build DAG on one device.  `samples_or_dir` is a samples.tsv
-    (fresh build) or an initialized index dir (resume).  device_dict=True
-    counts and merges on the device in one stage (build_dict_device).
-    --mesh is not ported (ROADMAP.md's port queue) and raises."""
-    if mesh_devices:
-        raise NotImplementedError(
-            "--mesh (parallel/ on torch.distributed) is not ported to "
-            "panagram_tpu_torch yet; it is a later step of ROADMAP.md's port "
-            "queue (panagram_tpu builds it)")
+                mesh_strategy="range", num_processes=1, process_id=0,
+                coordinator=None, **params) -> Index:
+    """Run the build DAG.  `samples_or_dir` is a samples.tsv (fresh build)
+    or an initialized index dir (resume).  device_dict=True counts and
+    merges on the device in one stage (build_dict_device).
+
+    mesh_devices=N builds on a mesh of N ranks, one per device (`device`
+    "cuda": cuda:0 .. cuda:N-1 on NCCL; "cpu": Gloo), started here
+    (parallel/mesh.launch); mesh_strategy "range" shards the dictionary by
+    key range and each chunk by position, "genomes" by mask words.  With
+    num_processes > 1 this process is process_id of that many, holding
+    N / num_processes of the ranks, all meeting at `coordinator`
+    (host:port, served by process 0); device_dict does not apply.  A mesh
+    build leaves this process's ranks' parallel.mesh.RankResults (their
+    kernel launches, peak device memory and _mesh_rank's report) in the
+    returned Index's mesh_ranks."""
     dev = resolve_device(device)
     # INFO to stderr unless the process configured logging already (what
     # panagram_tpu's init_logger does); anchor logs also go to logs/
     logging.basicConfig(level=logging.INFO, format=_LOG_FORMAT,
                         datefmt=_LOG_DATEFMT)
+    if mesh_devices and mesh_strategy not in ("range", "genomes"):
+        raise ValueError(f"unknown mesh strategy '{mesh_strategy}'")
     index = Index(samples_or_dir, prefix=prefix, **params)
     os.makedirs(os.path.join(index.prefix, "logs"), exist_ok=True)
+    if mesh_devices:
+        index.mesh_ranks = launch(
+            _mesh_rank, (index.prefix, force, mesh_strategy), mesh_devices,
+            dev.type, num_processes, process_id, coordinator)
+        return index
 
     if device_dict:
         build_dict_device(index, dev, force=force)

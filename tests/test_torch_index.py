@@ -212,9 +212,13 @@ def test_cli_prepare_and_refusals(built, tmp_path, capsys):
     assert "Prepared index" in capsys.readouterr().out
 
     base = ["index", str(samples), "-k", str(K), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port_main(base + ["--prefix", str(tmp_path / "mesh"), "--mesh", "2"])
+    with pytest.raises(SystemExit, match="--mesh-strategy requires --mesh"):
+        port_main(base + ["--prefix", str(tmp_path / "mesh"),
+                          "--mesh-strategy", "genomes"])
     if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            port_main(["index", str(samples), "-k", str(K), "--prefix",
+                       str(tmp_path / "mesh"), "--mesh", "2"])
         with pytest.raises(RuntimeError, match="cuda"):
             build_index(str(samples), prefix=str(tmp_path / "c"), device="cuda")
 

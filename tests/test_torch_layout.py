@@ -207,3 +207,57 @@ def test_layout_route_by_free_memory(rng):
         lookup.BucketedDict.build_device(mp, maskp, 30, K, "cpu", mixed=True,
                                          count=len(keys), sorted_input=True,
                                          free=fixed - 1)
+
+
+def test_layout_bytes_counts_the_port_transients():
+    """layout_bytes counts what layout_rows, _layout_piece and _piece_bounds
+    allocate (not panagram_tpu's byte model, which under-counts the port's
+    single pass), as two phases: the sorts and slot computation before the
+    table exists, counted beside it only where they exceed it, then the
+    scatter beside it.  The per-key constants at 1e8 keys, W=1 (2^24
+    buckets of 64 u32, 42.9 B/key of table) and at W=4, a table small
+    enough for the sort to outgrow it, and the route boundary, where a free
+    figure just under the single pass's need now takes the chunked route
+    (panagram_tpu's model, (8 + 4W + 12) B/key, would have taken the single
+    pass and run out)."""
+    D, W = 10**8, 1
+    B = 1 << 24
+    small = 16 << 20    # small tensors and allocator rounding
+    nbits, _, stride = lookup.table_geometry(D, W)
+    assert (nbits, stride) == (24, 64)
+    table = (B * stride + 3) * 4
+    slots = 24 * D + 2 * 8 * (B + 1)
+    assert slots < table                  # the slot computation is hidden
+    assert lookup.layout_bytes(D, W, "sorted") == small + 12 * D + 20 * D
+    # the sort's 48 B/key exceed the table by a little; the scatter beside
+    # the table and the sorted copies weigh more
+    assert 48 * D - table < 32 * D
+    assert lookup.layout_bytes(D, W, "sort") == small + 12 * D + 32 * D
+    assert lookup.layout_bytes(D, W, "bucket") == small + 20 * D + 32 * D
+    # 8 passes of 1.25e7 rows (+1/64) over 2^21 buckets each
+    n = 12_500_000 * 65 // 64
+    assert lookup.layout_bytes(D, W, "chunked") == \
+        small + 12 * D + 32 * n + 2 * 8 * ((1 << 21) + 1)
+    # a table of 2^20 buckets: the sort before it counts, less the table
+    small_table = ((1 << 20) * stride + 3) * 4
+    assert lookup.layout_bytes(D, W, "sort", n_buckets=1 << 20) == \
+        small + 12 * D + 48 * D - small_table
+    assert lookup.layout_bytes(D, W, "bucket", n_buckets=1 << 20) == \
+        small + 20 * D + 64 * D - small_table
+    # a small layout still takes two passes, of half its rows (+1/64)
+    assert lookup.layout_bytes(1000, W, "chunked", n_buckets=1 << 8) == \
+        small + 12 * 1000 + 32 * 507 + 2 * 8 * ((1 << 7) + 1)
+    Dw = 10**6
+    nw, _, sw = lookup.table_geometry(Dw, 4)
+    assert (nw, sw) == (18, 128)
+    assert lookup.layout_bytes(Dw, 4, "sorted") == small + 24 * Dw + 20 * Dw
+    assert lookup.layout_bytes(Dw, 4, "sort") == small + 24 * Dw + 44 * Dw
+
+    fixed = B * stride * 4 + lookup.ANCHOR_RESERVE_BYTES
+    need = fixed + lookup.layout_bytes(D, W, "sorted")
+    route = lookup.layout_route
+    assert route(D, W, "cpu", True, free=need) == "single"
+    assert route(D, W, "cpu", True, free=need - 1) == "chunked"
+    jax_model = fixed + (8 + 4 * W + 12) * D
+    assert jax_model < need
+    assert route(D, W, "cpu", True, free=jax_model) == "chunked"
