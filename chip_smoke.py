@@ -6,9 +6,19 @@
    process per source, in parallel).
 3. Kernel phase: at the anchor path's shapes (a 2^22-position chunk, k=31;
    W=1 with 30 genomes and W=2 with 40) each anchor kernel's output is
-   compared bit for bit with its plain torch version on the card, and both
-   are timed (median of CUDA-event-timed repetitions); so is mosaic_probe
-   at n = 1024 and 2^24.
+   compared bit for bit with its plain torch version on the card; so is
+   mosaic_probe at n = 1024 and 2^24.  Each kernel is timed on the card's
+   own clock (panagram_tpu_torch/tools/kernel_times.py): warm, 50 launches
+   back to back behind a blocker, and cold, the L2 flushed before each
+   launch (the reading of an empty event pair is printed beside it and not
+   subtracted); the reading of one call between two events, which holds
+   the host's enqueue, is printed beside them.  Its bound is
+   kernels.bound_bytes over MEM_RATE (for probe_sorted the table rows
+   these queries touch are counted on the card): the kernels do integer
+   work only, for which the data sheet names no peak, and none needs more
+   time for it than for its bytes.  The share of the bound is bound / cold
+   time.  masks_to_bytes is timed beside the one torch call that computes
+   it (library_masks_to_bytes).
 4. The mosaic probe tool: ``panagram_tpu_torch.tools.mosaic_probe.main()``
    in process must print four True lines and launch its kernel.
 5. The slice: 30 founder-structured genomes of 5 Mbp (seed 0) are written
@@ -54,8 +64,9 @@
    a sample of keys must find their masks.  Each of these routes and the
    range-sharded layout (low-bit buckets, "bucket" mode) must hold its
    transients within lookup.layout_bytes and above MODEL_FLOOR of it.
-10. Prints the kernels JSON line, the card line, and last
-   {"ok": true, "device": {...}}.  Any failed check raises, so the script
+10. Prints one line per kernel (bytes, bound, share, launches
+   of the slice, library call), the kernels JSON line, the card line, and
+   last {"ok": true, "device": {...}}.  Any failed check raises, so the script
    exits non-zero without that line; so does a machine without CUDA.
 """
 
@@ -74,7 +85,12 @@ import time
 import numpy as np
 import torch
 
-import panagram_tpu_torch  # noqa: F401  (fails early outside the repo)
+from panagram_tpu_torch.tools.kernel_times import (
+    Flush,
+    cold_ms,
+    one_call_ms,
+    warm_ms,
+)
 
 K = 31
 CHUNK = 1 << 22
@@ -89,7 +105,8 @@ LAYOUT_KEYS = 100_000_000  # layout phase: a ~1e8-key W=1 table
 # must reach: the model may over-count by at most a fifth
 MODEL_FLOOR = 0.8
 MOSAIC_SIZES = (1024, 1 << 24)
-REPS = 10
+# the card's device-memory rate (NVIDIA's H100 SXM data sheet)
+MEM_RATE = 3.35e12
 
 KERNELS = [  # (wrapper, CUDA source, TPU kernel it replaces)
     ("pack_mix", "panagram_tpu_torch/csrc/pack_mix.cu",
@@ -114,23 +131,6 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = REPS) -> float:
-    """Median milliseconds of fn() on the card, each call between two CUDA
-    events, after two warm-up calls."""
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
 def max_abs_err(got, want) -> int:
     """Largest |difference| over the outputs, compared as unsigned ints."""
     err = 0
@@ -144,9 +144,9 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def kernel_phase(dev, ngenomes: int, rng) -> dict:
+def kernel_phase(dev, ngenomes: int, rng, flush) -> dict:
     """Each kernel against its plain version on a main-path-sized chunk.
-    Returns {name: (max_abs_err, ms, plain_ms)}."""
+    Returns {name: compare()'s dict}."""
     from panagram_tpu_torch.ops import kernels
     from panagram_tpu_torch.ops.codec import pack_bases_np, pack_kmers, u64_np
     from panagram_tpu_torch.ops.lookup import BucketedDict, plan_probe
@@ -184,6 +184,18 @@ def kernel_phase(dev, ngenomes: int, rng) -> dict:
     print(f"  probe: span {plan.span} rows, {int(plan.out_span.sum())} "
           f"queries out of span, {hit_frac:.3f} of positions hit", flush=True)
 
+    valid = ~((plan.qhi == -1) & (plan.qlo == -1))
+    touched = torch.unique(kernels.probe_rows(
+        plan.qhi, plan.blo, bd.nbits, plan.span, plan.tile_q)[valid]).numel()
+    print(f"  probe: {touched} distinct table rows of {bd.stride * 4} B "
+          f"touched by {int(valid.sum())} queries", flush=True)
+    shapes = {
+        "pack_mix": dict(L=L, k=K, Ppad=CHUNK),
+        "probe_sorted": dict(Q=CHUNK, nwords=W, tile_q=plan.tile_q,
+                             stride=bd.stride, rows_touched=touched),
+        "fused_popcount_colsums": dict(P=CHUNK, W=W, ngenomes=32 * W),
+        "masks_to_bytes": dict(P=CHUNK, W=W, nbytes=nbytes),
+    }
     cases = {
         "pack_mix": (lambda: kernels.pack_mix(p, n, L, K, CHUNK),
                      lambda: kernels.pack_mix_plain(p, n, L, K, CHUNK)),
@@ -195,16 +207,30 @@ def kernel_phase(dev, ngenomes: int, rng) -> dict:
         "masks_to_bytes": (lambda: (kernels.masks_to_bytes(rows, nbytes),),
                            lambda: (kernels.masks_to_bytes_plain(rows, nbytes),)),
     }
-    out = {name: compare(name, f"N={ngenomes}", kern, plain)
+    library = {"masks_to_bytes": lambda: library_masks_to_bytes(rows, nbytes)}
+    out = {name: compare(name, f"N={ngenomes}", kern, plain, shapes[name],
+                         flush, library.get(name))
            for name, (kern, plain) in cases.items()}
     del bd, rows, plan
     torch.cuda.empty_cache()
     return out
 
 
-def compare(name: str, what: str, kern, plain):
-    """Kernel against plain version on the card: (max_abs_err, ms,
-    plain_ms); raises unless bit-exact."""
+def library_masks_to_bytes(rows, nbytes: int):
+    """The one torch call that computes masks_to_bytes: the words' bytes,
+    cut, copied into a new tensor (.contiguous() would copy nothing when
+    nothing is cut).  A yardstick for the kernel's time; nothing in the
+    package calls it."""
+    return (rows.view(torch.uint8)[:, :nbytes]
+            .clone(memory_format=torch.contiguous_format),)
+
+
+def compare(name: str, what: str, kern, plain, shape: dict, flush,
+            library=None) -> dict:
+    """Kernel against plain version on the card (raises unless bit-exact),
+    its times, and its bound at `shape`."""
+    from panagram_tpu_torch.ops import kernels
+
     got = kern()
     want = plain()
     torch.cuda.synchronize()
@@ -212,15 +238,34 @@ def compare(name: str, what: str, kern, plain):
     if err != 0:
         raise AssertionError(f"{name} ({what}): kernel differs from its "
                              f"plain version, max |err| {err}")
-    res = (err, time_ms(kern), time_ms(plain))
-    print(f"  {name:24s} bit-exact  kernel {res[1]:9.4f} ms  "
-          f"plain {res[2]:9.4f} ms", flush=True)
+    nbytes = kernels.bound_bytes(name, **shape)
+    cold, empty = cold_ms(kern, flush)
+    res = {"err": err, "warm_ms": warm_ms(kern), "cold_ms": cold,
+           "empty_pair_ms": empty, "old_timer_ms": one_call_ms(kern),
+           "plain_ms": warm_ms(plain, launches=3, runs=3),
+           "bytes": nbytes, "bound_ms": nbytes / MEM_RATE * 1e3,
+           "library_ms": None, "library_warm_ms": None}
+    res["share"] = res["bound_ms"] / cold
+    print(f"  {name:24s} bit-exact  warm {res['warm_ms']:.5f} ms  cold "
+          f"{cold:.5f} ms (empty pair {empty:.5f}, not subtracted)  one call "
+          f"between events {res['old_timer_ms']:.5f} ms  plain "
+          f"{res['plain_ms']:.4f} ms", flush=True)
+    print(f"  {'':24s} {nbytes} B: bound {res['bound_ms']:.5f} ms by bytes, "
+          f"share of bound {res['share']:.3f} (less the empty pair "
+          f"{res['bound_ms'] / (cold - empty):.3f})", flush=True)
+    if library is not None:
+        if max_abs_err(library(), want) != 0:
+            raise AssertionError(f"{name} ({what}): the library call differs")
+        res["library_ms"], _ = cold_ms(library, flush)
+        res["library_warm_ms"] = warm_ms(library)
+        print(f"  {'':24s} library call: warm {res['library_warm_ms']:.5f} ms"
+              f"  cold {res['library_ms']:.5f} ms", flush=True)
     return res
 
 
-def mosaic_phase(dev) -> tuple[dict, int]:
+def mosaic_phase(dev, flush) -> tuple[dict, int]:
     """mosaic_probe against its plain version at MOSAIC_SIZES, then the
-    probe tool in process.  Returns ({n: (err, ms, plain_ms)}, the tool
+    probe tool in process.  Returns ({n: compare()'s dict}, the tool
     run's kernel launches)."""
     from panagram_tpu_torch.ops import kernels
     from panagram_tpu_torch.tools import mosaic_probe
@@ -233,7 +278,8 @@ def mosaic_phase(dev) -> tuple[dict, int]:
         print(f"  mosaic_probe n={n}:", flush=True)
         out[n] = compare("mosaic_probe", f"n={n}",
                          lambda: (kernels.mosaic_probe(ta, tb),),
-                         lambda: (kernels.mosaic_probe_plain(ta, tb),))
+                         lambda: (kernels.mosaic_probe_plain(ta, tb),),
+                         dict(n=n), flush)
     kernels.reset_launches()
     buf = io.StringIO()
     sys_stdout, sys.stdout = sys.stdout, buf
@@ -1018,8 +1064,10 @@ def main():
 
     rng = np.random.default_rng(1)
     print(f"kernel phase [{card}] (2^22-position chunk, k={K}):", flush=True)
-    measured = {n: kernel_phase(dev, n, rng) for n in (30, 40)}
-    mosaic, mosaic_launches = mosaic_phase(dev)
+    flush = Flush(dev)
+    measured = {n: kernel_phase(dev, n, rng, flush) for n in (30, 40)}
+    mosaic, mosaic_launches = mosaic_phase(dev, flush)
+    del flush
 
     with tempfile.TemporaryDirectory() as work:
         launches, seqs, slice_peak = slice_phase(work, card)
@@ -1030,16 +1078,36 @@ def main():
     layout_phase(dev, card)
 
     rows = []
+    print(f"kernels at the main path's shapes [{card}; bound at "
+          f"{MEM_RATE / 1e12:g} TB/s].  In the JSON line `ms` is the cold "
+          "reading as it stands (one launch between its own events behind a "
+          "blocker, L2 flushed, empty pair not subtracted); until this "
+          "timer it was one call between events with the host's enqueue "
+          "inside, which `old_timer_ms` still reads:", flush=True)
     for name, source, replaces in KERNELS:
         if name == "mosaic_probe":
-            err = max(r[0] for r in mosaic.values())
-            _, ms, plain_ms = mosaic[MOSAIC_SIZES[-1]]
+            err = max(r["err"] for r in mosaic.values())
+            m = mosaic[MOSAIC_SIZES[-1]]
         else:
-            err = max(measured[n][name][0] for n in measured)
-            _, ms, plain_ms = measured[30][name]
+            err = max(measured[n][name]["err"] for n in measured)
+            m = measured[30][name]
+        print(f"  {name:24s} {m['bytes']} B, bound "
+              f"{m['bound_ms']:.5f} ms by bytes; cold "
+              f"{m['cold_ms']:.5f} ms (empty pair {m['empty_pair_ms']:.5f}), "
+              f"share of bound {m['share']:.3f}; warm "
+              f"{m['warm_ms']:.5f} ms; launches {launches[name]}; library "
+              "call " + ("none" if m["library_ms"] is None else
+                         f"{m['library_ms']:.5f} ms cold, "
+                         f"{m['library_warm_ms']:.5f} ms warm"), flush=True)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "max_abs_err": err, "ms": m["cold_ms"],
+                     "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                     "bound_by": "bytes",
+                     "library_ms": m["library_ms"],
+                     "warm_ms": m["warm_ms"],
+                     "empty_pair_ms": m["empty_pair_ms"],
+                     "old_timer_ms": m["old_timer_ms"]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,24 @@ torch's current stream) and adds one to ``launches[name]``; a refused
 launch raises.  On a CPU tensor it runs the plain torch version
 beside it, which is the specification the kernel is tested against.  Any
 other device raises.  Each source file notes what bounds its kernel on the
-card and what its design does about that.
+card and what its design does about that; in short:
+
+* pack_mix: instructions, not yet its 8.4 bytes per position: one thread
+  per position does 17 byte-wide bounds-checked loads and about 90
+  integer instructions.  Not yet redesigned.
+* probe_sorted: bytes (the table rows its queries touch); one warp reads a
+  256-byte row at a time.
+* fused_popcount_colsums: bytes.  128-bit loads, bit-sliced 5-bit column
+  counters per thread, and a 32 x 32 bit transpose per warp at each flush
+  keep the arithmetic at a few instructions per word.
+* masks_to_bytes: bytes.  The output is a byte stream cut out of the
+  input: a 128-bit copy when nothing is cut, else tiles staged in shared
+  memory and 16 output bytes gathered per thread.
+* mosaic_probe: bytes; 8 in and 16 out per element, already streaming.
+
+``bound_bytes`` counts, from shapes alone, the bytes each function must
+move; chip_smoke.py and PERF.md hold the measured times against that
+count over the card's memory rate.
 
 u32 data travels as int32 tensors holding the same bits.
 """
@@ -240,14 +257,19 @@ def match_slots(rows: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
     return sel.sum(dim=1, dtype=torch.int32)
 
 
+def probe_rows(qhi, blo, nbits: int, span: int, tile_q: int) -> torch.Tensor:
+    """int64 [Q]: the table row each query of probe_sorted reads."""
+    Q = qhi.shape[0]
+    b0 = blo.to(torch.int64)[torch.arange(Q, device=qhi.device) // tile_q]
+    bucket = u32(qhi) >> (32 - nbits)
+    return b0 + torch.clamp(bucket - b0, 0, span - 1)
+
+
 def probe_sorted_plain(qhi, qlo, blo, table, nbits: int, cap: int,
                        nwords: int, span: int, tile_q: int) -> torch.Tensor:
     """Plain torch version of probe_sorted: the clamped row per query,
     gathered, then matched."""
-    Q = qhi.shape[0]
-    b0 = blo.to(torch.int64)[torch.arange(Q, device=qhi.device) // tile_q]
-    bucket = u32(qhi) >> (32 - nbits)
-    row = b0 + torch.clamp(bucket - b0, 0, span - 1)
+    row = probe_rows(qhi, blo, nbits, span, tile_q)
     return match_slots(table[row], qhi, qlo, cap, nwords)
 
 
@@ -268,6 +290,21 @@ def fused_popcount_colsums(rows: torch.Tensor, ngenomes: int):
     dev = rows.device
     popc = torch.empty(P, dtype=torch.int32, device=dev)
     colsums = torch.zeros(ngenomes, dtype=torch.int32, device=dev)
+    _popcount_colsums_into(rows, ngenomes, popc, colsums)
+    return popc, colsums
+
+
+def _popcount_colsums_into(rows, ngenomes: int, popc, colsums):
+    """Launch the kernel on rows [P, W] into popc [P] and the zeroed
+    colsums [ngenomes], contiguous int32 tensors of the rows' card."""
+    P, W = rows.shape
+    dev = rows.device
+    _need(popc, torch.int32, 1, "fused_popcount_colsums popc")
+    _need(colsums, torch.int32, 1, "fused_popcount_colsums colsums")
+    if popc.shape[0] != P or colsums.shape[0] != ngenomes \
+            or not _on_card(rows, popc, colsums):
+        raise ValueError(f"fused_popcount_colsums: outputs {tuple(popc.shape)} "
+                         f"{tuple(colsums.shape)} for P={P}, N={ngenomes}")
     smem = 8 * 32 * W * 4
     if smem > _SMEM_LIMIT:
         raise ValueError(f"fused_popcount_colsums: W={W} needs {smem} B of "
@@ -277,7 +314,6 @@ def fused_popcount_colsums(rows: torch.Tensor, ngenomes: int):
                                         popc.data_ptr(), colsums.data_ptr(),
                                         _POPC_MAX_BLOCKS, _stream(dev))
         _launched("fused_popcount_colsums", rc, dev)
-    return popc, colsums
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -310,13 +346,24 @@ def masks_to_bytes(rows: torch.Tensor, nbytes: int) -> torch.Tensor:
         raise ValueError(f"masks_to_bytes: nbytes={nbytes}, W={W}")
     if not _on_card(rows):
         return masks_to_bytes_plain(rows, nbytes)
-    dev = rows.device
-    out = torch.empty(P, nbytes, dtype=torch.uint8, device=dev)
+    out = torch.empty(P, nbytes, dtype=torch.uint8, device=rows.device)
+    _masks_to_bytes_into(rows, out)
+    return out
+
+
+def _masks_to_bytes_into(rows, out):
+    """Launch the kernel on rows [P, W] into out, a contiguous uint8
+    [P, nbytes] tensor of the rows' card."""
+    P, W = rows.shape
+    _need(out, torch.uint8, 2, "masks_to_bytes out")
+    nbytes = out.shape[1]
+    if out.shape[0] != P or nbytes > 4 * W or not _on_card(rows, out):
+        raise ValueError(f"masks_to_bytes: out {tuple(out.shape)} for "
+                         f"rows {tuple(rows.shape)}")
     if P and nbytes:
         rc = _lib().pg_masks_to_bytes(rows.data_ptr(), P, W, nbytes,
-                                      out.data_ptr(), _stream(dev))
-        _launched("masks_to_bytes", rc, dev)
-    return out
+                                      out.data_ptr(), _stream(rows.device))
+        _launched("masks_to_bytes", rc, rows.device)
 
 
 def masks_to_bytes_plain(rows, nbytes: int) -> torch.Tensor:
@@ -364,3 +411,34 @@ def mosaic_probe_plain(a, b) -> torch.Tensor:
     sign = torch.iinfo(torch.int32).min
     cmp = torch.where((a ^ sign) < (b ^ sign), prod, rolled)
     return torch.stack([prod, rolled, hi16, cmp], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# bounds
+# ---------------------------------------------------------------------------
+
+def bound_bytes(name: str, **shape) -> int:
+    """The bytes the function `name` must move at a shape: each input read
+    once, each output written once.  Pure arithmetic on the shape:
+
+    pack_mix               L, k, Ppad
+    probe_sorted           Q, nwords, tile_q, stride, rows_touched (the
+                           distinct table rows these queries read)
+    fused_popcount_colsums P, W, ngenomes
+    masks_to_bytes         P, W, nbytes
+    mosaic_probe           n
+    """
+    g = shape.__getitem__
+    if name == "pack_mix":
+        return -(-g("L") // 4) + -(-g("L") // 8) + 8 * g("Ppad")
+    if name == "probe_sorted":
+        Q = g("Q")
+        return (8 * Q + 4 * -(-Q // g("tile_q")) + 4 * g("nwords") * Q
+                + 4 * g("stride") * g("rows_touched"))
+    if name == "fused_popcount_colsums":
+        return 4 * g("P") * g("W") + 4 * g("P") + 4 * g("ngenomes")
+    if name == "masks_to_bytes":
+        return 4 * g("P") * g("W") + g("P") * g("nbytes")
+    if name == "mosaic_probe":
+        return 8 * g("n") + 16 * g("n")
+    raise KeyError(name)

@@ -113,6 +113,138 @@ def test_probe_popcount_bytes_kernels(cuda, ngenomes):
     assert torch.equal(by, kernels.masks_to_bytes_plain(rows, nbytes))
 
 
+# the shapes at which the two redesigned kernels branch (the CPU tests pin
+# their plain versions against panagram_tpu at the same ones): W with a
+# vector instance (1, 2, 4) and without (5); nbytes that cut nothing, one
+# byte, three bytes, all but one; row counts around the 16-byte pieces, one
+# staged tile and many
+BYTES_GRID = [(W, nb) for W in (1, 2, 4, 5)
+              for nb in sorted({1, 4 * W - 3, 4 * W - 1, 4 * W})]
+POPC_GRID = [(1, 30), (1, 32), (2, 40), (4, 100), (5, 130)]
+ROW_COUNTS = [1, 15, 17, 2048, (1 << 17) + 3]
+SKIPS = [0, 1, 3]    # rows[skip:]: 4 W skip bytes into its allocation
+
+
+def _rows_on_card(rng, P, W, N, cuda):
+    rows = rng.integers(0, 1 << 32, (P, W), dtype=np.uint64)
+    rows[:, -1] &= np.uint64((1 << (N - 32 * (W - 1))) - 1)
+    return torch.from_numpy(rows.astype(np.uint32).view(np.int32)).to(cuda)
+
+
+@pytest.mark.parametrize("W,nbytes", BYTES_GRID)
+def test_masks_to_bytes_kernel_grid(cuda, W, nbytes):
+    """Every branch of the kernel, on whole tensors and on contiguous
+    slices whose pointer is 4-byte but not 16-byte aligned."""
+    rng = np.random.default_rng(100 * W + nbytes)
+    for P in ROW_COUNTS:
+        base = _rows_on_card(rng, P + max(SKIPS), W, 32 * W, cuda)
+        for skip in SKIPS:
+            rows = base[skip:skip + P]
+            assert rows.is_contiguous()
+            before = kernels.launches["masks_to_bytes"]
+            got = kernels.masks_to_bytes(rows, nbytes)
+            torch.cuda.synchronize()
+            assert kernels.launches["masks_to_bytes"] == before + 1
+            want = kernels.masks_to_bytes_plain(rows.cpu(), nbytes)
+            assert torch.equal(got.cpu(), want), (P, skip)
+
+
+@pytest.mark.parametrize("offset", [0, 16, 5])
+@pytest.mark.parametrize("W,nbytes", [(1, 4), (1, 3), (2, 5), (5, 17)])
+def test_masks_to_bytes_writes_nothing_past_its_output(cuda, W, nbytes, offset):
+    """The output sits inside a larger buffer (at a 16-byte aligned offset
+    and at an odd one); the bytes before and after it stay untouched."""
+    rng = np.random.default_rng(W + nbytes + offset)
+    for P in (1, 15, 17, 1027, (1 << 16) + 3):
+        rows = _rows_on_card(rng, P, W, 32 * W, cuda)
+        buf = torch.full((offset + P * nbytes + 64,), 0xAB, dtype=torch.uint8,
+                         device=cuda)
+        out = buf[offset:offset + P * nbytes].view(P, nbytes)
+        kernels._masks_to_bytes_into(rows, out)
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(),
+                           kernels.masks_to_bytes_plain(rows.cpu(), nbytes))
+        assert bool((buf[:offset] == 0xAB).all())
+        assert bool((buf[offset + P * nbytes:] == 0xAB).all()), P
+
+
+@pytest.mark.parametrize("W,N", POPC_GRID)
+def test_fused_popcount_colsums_kernel_grid(cuda, W, N):
+    """Every branch of the kernel on whole tensors and unaligned slices,
+    with N below 32 W (columns at or past N are not written) and at it."""
+    rng = np.random.default_rng(17 * W + N)
+    for P in ROW_COUNTS:
+        base = _rows_on_card(rng, P + max(SKIPS), W, N, cuda)
+        for skip in SKIPS:
+            rows = base[skip:skip + P]
+            for n in (N, 32 * W):
+                before = kernels.launches["fused_popcount_colsums"]
+                popc, cols = kernels.fused_popcount_colsums(rows, n)
+                torch.cuda.synchronize()
+                assert kernels.launches["fused_popcount_colsums"] == before + 1
+                wp, wc = kernels.fused_popcount_colsums_plain(rows.cpu(), n)
+                assert torch.equal(popc.cpu(), wp), (P, skip, n)
+                assert torch.equal(cols.cpu(), wc), (P, skip, n)
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 5])
+def test_fused_popcount_colsums_all_ones_past_a_flush(cuda, W):
+    """Rows of all ones over 70,000 rows and over 2^22: every column
+    counter of a thread fills between two flushes."""
+    for P in (70_000, 1 << 22):
+        rows = torch.full((P, W), -1, dtype=torch.int32, device=cuda)
+        popc, cols = kernels.fused_popcount_colsums(rows, 32 * W)
+        torch.cuda.synchronize()
+        assert bool((popc == 32 * W).all()) and bool((cols == P).all())
+
+
+@pytest.mark.parametrize("offset", [0, 4, 1])
+@pytest.mark.parametrize("W,N", [(1, 30), (2, 40), (4, 100), (5, 130)])
+def test_fused_popcount_colsums_writes_nothing_past_its_outputs(cuda, W, N,
+                                                                offset):
+    """popc and colsums sit inside larger buffers (popc at a 16-byte
+    aligned offset and at a 4-byte one); the words around them stay."""
+    rng = np.random.default_rng(W + N + offset)
+    for P in (1, 15, 17, 1027, (1 << 16) + 3):
+        rows = _rows_on_card(rng, P, W, N, cuda)
+        pbuf = torch.full((offset + P + 16,), -77, dtype=torch.int32,
+                          device=cuda)
+        cbuf = torch.zeros(N + 16, dtype=torch.int32, device=cuda)
+        kernels._popcount_colsums_into(rows, N, pbuf[offset:offset + P],
+                                       cbuf[:N])
+        torch.cuda.synchronize()
+        wp, wc = kernels.fused_popcount_colsums_plain(rows.cpu(), N)
+        assert torch.equal(pbuf[offset:offset + P].cpu(), wp)
+        assert torch.equal(cbuf[:N].cpu(), wc)
+        assert bool((pbuf[:offset] == -77).all())
+        assert bool((pbuf[offset + P:] == -77).all()) and not bool(cbuf[N:].any())
+
+
+def test_kernels_past_2_31_bytes(cuda):
+    """Outputs of more than 2^31 bytes and inputs of more than 2^31 words:
+    the kernels' indices are 64-bit and their grids loop."""
+    P = (1 << 29) + 5
+    rows = torch.full((P, 1), 0x04030201, dtype=torch.int32, device=cuda)
+    got = kernels.masks_to_bytes(rows, 4)
+    torch.cuda.synchronize()
+    assert got.shape == (P, 4) and torch.equal(got.view(torch.int32), rows)
+    del got, rows
+    rows = torch.full((P, 2), 0x04030201, dtype=torch.int32, device=cuda)
+    got = kernels.masks_to_bytes(rows, 5)
+    torch.cuda.synchronize()
+    want = torch.tensor([1, 2, 3, 4, 1], dtype=torch.uint8, device=cuda)
+    assert P * 5 > 1 << 31
+    assert bool((got[:1000] == want).all()) and bool((got[-1000:] == want).all())
+    mid = (1 << 31) // 5      # the row that holds byte 2^31
+    assert bool((got[mid - 100:mid + 100] == want).all())
+    del got, rows
+    torch.cuda.empty_cache()
+    rows = torch.full((P, 4), -1, dtype=torch.int32, device=cuda)
+    popc, cols = kernels.fused_popcount_colsums(rows, 128)
+    torch.cuda.synchronize()
+    assert bool((popc == 128).all()) and bool((cols == P).all())
+
+
 def test_anchor_chunk_matches_oracle(cuda):
     """The dense chunk through all four kernels equals the numpy oracle,
     with a tight window so the out-of-span fixup runs."""
@@ -340,17 +472,26 @@ def test_threaded_anchoring_on_card(cuda, tmp_path, monkeypatch):
 
 
 def test_kernel_counter_threads_on_card(cuda):
-    """N threads that launch a kernel M times each raise its counter by
-    N x M: no update is lost."""
+    """N threads that launch two kernels M times each, on a stream of their
+    own, raise each counter by N x M (no update is lost), and every launch
+    gives the right result: launches share no scratch on the card."""
     nthreads, calls = 6, 50
-    rows = torch.from_numpy(np.arange(2048, dtype=np.int32).reshape(1024, 2)
+    rows = torch.from_numpy(np.arange(1 << 18, dtype=np.int32).reshape(-1, 2)
                             ).to(cuda)
-    before = kernels.launches["masks_to_bytes"]
+    want_b = kernels.masks_to_bytes_plain(rows, 5)
+    want_p, want_c = kernels.fused_popcount_colsums_plain(rows, 40)
+    torch.cuda.synchronize()
+    before = dict(kernels.launches)
+    wrong = []
 
     def run():
         with torch.cuda.stream(torch.cuda.Stream(cuda)):
             for _ in range(calls):
-                kernels.masks_to_bytes(rows, 5)
+                by = kernels.masks_to_bytes(rows, 5)
+                popc, cols = kernels.fused_popcount_colsums(rows, 40)
+                if not (torch.equal(by, want_b) and torch.equal(popc, want_p)
+                        and torch.equal(cols, want_c)):
+                    wrong.append(1)
 
     threads = [threading.Thread(target=run) for _ in range(nthreads)]
     for t in threads:
@@ -359,7 +500,9 @@ def test_kernel_counter_threads_on_card(cuda):
         t.join(timeout=120)
     assert not any(t.is_alive() for t in threads)
     torch.cuda.synchronize()
-    assert kernels.launches["masks_to_bytes"] - before == nthreads * calls
+    assert not wrong
+    for name in ("masks_to_bytes", "fused_popcount_colsums"):
+        assert kernels.launches[name] - before[name] == nthreads * calls
 
 
 @pytest.mark.parametrize("ngenomes", [3, 32, 34, 100])

@@ -18,10 +18,12 @@ from panagram_tpu.ops import pallas_kernels as pk
 from panagram_tpu.ops.dictionary import build_dictionary as jax_build_dictionary
 from panagram_tpu.ops.lookup import BucketedDict as JaxBucketedDict
 from panagram_tpu.ops.lookup import row_pack
+from panagram_tpu.ops import ref_impl as jax_ref_impl
 from panagram_tpu.ops.ref_impl import genome_kmer_set
 from panagram_tpu_torch.ops import kernels
 from panagram_tpu_torch.ops.codec import pack_bases_np
 from panagram_tpu_torch.ops.lookup import BucketedDict, mix64_np
+from panagram_tpu_torch.ops.ref_impl import masks_to_bytes_np
 from panagram_tpu_torch.tools import mosaic_probe as port_mosaic
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -138,6 +140,130 @@ def test_masks_to_bytes_matches_pallas(nbytes):
     got = kernels.masks_to_bytes(_i32(rows), nbytes)
     assert got.dtype == torch.uint8
     assert np.array_equal(got.numpy(), want)
+
+
+def _mask_rows(rng, P, W, N):
+    """Random u32 rows [P, W] with no bit at or past N."""
+    rows = rng.integers(0, 1 << 32, (P, W), dtype=np.uint64)
+    rows[:, -1] &= np.uint64((1 << (N - 32 * (W - 1))) - 1)
+    return rows.astype(np.uint32)
+
+
+# the shapes at which the CUDA kernels branch: W with a vector instance (1,
+# 2, 4) and without (5); nbytes that cut nothing (4W), one byte, three
+# bytes, and all but one
+BYTES_GRID = [(W, nb) for W in (1, 2, 4, 5)
+              for nb in sorted({1, 4 * W - 3, 4 * W - 1, 4 * W})]
+
+
+@pytest.mark.parametrize("W,nbytes", BYTES_GRID)
+def test_masks_to_bytes_grid_matches_pallas(W, nbytes):
+    rng = np.random.default_rng(100 * W + nbytes)
+    rows = rng.integers(0, 1 << 32, (pk.TILE, W), dtype=np.uint64).astype(np.uint32)
+    want = np.asarray(pk.masks_to_bytes_pallas(jnp.asarray(rows), nbytes))
+    got = kernels.masks_to_bytes(_i32(rows), nbytes)
+    assert got.dtype == torch.uint8 and got.shape == (pk.TILE, nbytes)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("P", [1, 7, 1023])
+def test_masks_to_bytes_matches_numpy_at_ragged_sizes(P):
+    """Row counts that are no multiple of 16 (the kernels' 128-bit pieces
+    end inside a row), against the port's numpy reference."""
+    rng = np.random.default_rng(P)
+    for W, nbytes in BYTES_GRID:
+        rows = rng.integers(0, 1 << 32, (P, W), dtype=np.uint64).astype(np.uint32)
+        got = kernels.masks_to_bytes(_i32(rows), nbytes)
+        assert np.array_equal(got.numpy(), masks_to_bytes_np(rows, nbytes))
+
+
+@pytest.mark.parametrize("W,N", [(1, 30), (1, 32), (2, 40), (4, 100), (5, 130)])
+def test_fused_popcount_colsums_grid_matches_jax(W, N):
+    """Against the Pallas kernel in interpret mode at P = 4096; the column
+    totals also against panagram_tpu's numpy reference rows."""
+    rng = np.random.default_rng(17 * W + N)
+    P = 4096
+    rows = _mask_rows(rng, P, W, N)
+    want_p, want_c = pk.fused_popcount_colsums(jnp.asarray(rows), N)
+    popc, colsums = kernels.fused_popcount_colsums(_i32(rows), N)
+    assert popc.shape == (P,) and colsums.shape == (N,)
+    assert np.array_equal(popc.numpy(), np.asarray(want_p))
+    assert np.array_equal(colsums.numpy(), np.asarray(want_c))
+    assert np.array_equal(popc.numpy(), jax_ref_impl.popcount_np(rows))
+
+
+@pytest.mark.parametrize("P,W,N,ones", [
+    (1, 1, 30, False), (7, 2, 40, False), (1023, 4, 100, False),
+    (4097, 5, 130, False), (70_000, 1, 32, True), (70_000, 2, 64, True),
+    (70_000, 4, 128, True)])
+def test_fused_popcount_colsums_matches_numpy(P, W, N, ones):
+    """Odd row counts, and rows of all ones over 70,000 rows: past any
+    interval at which a kernel flushes its small column counters, and past
+    2^16."""
+    rng = np.random.default_rng(P + W)
+    rows = np.full((P, W), 0xFFFFFFFF, np.uint32) if ones \
+        else _mask_rows(rng, P, W, N)
+    bits = np.unpackbits(rows.view(np.uint8), axis=1, bitorder="little")
+    popc, colsums = kernels.fused_popcount_colsums(_i32(rows), N)
+    assert np.array_equal(popc.numpy(), bits.sum(axis=1))
+    assert np.array_equal(colsums.numpy(), bits.sum(axis=0)[:N])
+    if ones:
+        assert (colsums.numpy() == P).all() and (popc.numpy() == 32 * W).all()
+
+
+@pytest.mark.parametrize("name,shape,want", [
+    ("pack_mix", dict(L=(1 << 22) + 30, k=31, Ppad=1 << 22),
+     1_048_584 + 524_292 + 33_554_432),
+    ("probe_sorted", dict(Q=1 << 22, nwords=1, tile_q=1024, stride=64,
+                          rows_touched=2_500_000),
+     33_554_432 + 16_384 + 16_777_216 + 256 * 2_500_000),
+    ("fused_popcount_colsums", dict(P=1 << 22, W=1, ngenomes=32),
+     16_777_216 + 16_777_216 + 128),
+    ("masks_to_bytes", dict(P=1 << 22, W=1, nbytes=4), 16_777_216 + 16_777_216),
+    ("masks_to_bytes", dict(P=1 << 22, W=2, nbytes=5), 33_554_432 + 20_971_520),
+    ("mosaic_probe", dict(n=1 << 24), 134_217_728 + 268_435_456),
+])
+def test_bound_bytes_at_the_main_path_shapes(name, shape, want):
+    """Each input read once, each output written once, at the shapes of a
+    2^22-position chunk (k=31, 30 genomes) and of the 2^24 probe."""
+    assert kernels.bound_bytes(name, **shape) == want
+    with pytest.raises(KeyError):
+        kernels.bound_bytes("no_such_kernel", **shape)
+
+
+def test_probe_rows_are_the_rows_the_plain_probe_gathers():
+    rng = np.random.default_rng(23)
+    jbd, qhi, qlo = _probe_inputs(rng, 3, 2)
+    (jt,) = jbd.device_arrays()
+    bd = BucketedDict.from_jax_state(np.asarray(jt), jbd.nbits, jbd.cap,
+                                     jbd.stride, 3, 13, jbd.nwords)
+    blo, span, pack = _jax_blo_span(qhi, jbd.nbits, jbd.stride, 1024)
+    rows = kernels.probe_rows(_i32(qhi), torch.from_numpy(blo * pack),
+                              bd.nbits, span * pack, 1024)
+    assert rows.dtype == torch.int64 and rows.shape == (len(qhi),)
+    assert int(rows.min()) >= 0 and int(rows.max()) < (1 << bd.nbits)
+    t = _i32(bd.table)
+    got = kernels.match_slots(t[rows], _i32(qhi), _i32(qlo), bd.cap, bd.nwords)
+    want = kernels.probe_sorted(_i32(qhi), _i32(qlo),
+                                torch.from_numpy(blo * pack), t, bd.nbits,
+                                bd.cap, bd.nwords, span * pack, 1024)
+    assert torch.equal(got, want)
+
+
+def test_build_compiles_the_five_sources_of_the_package():
+    """One library beside the package, from the five sources of csrc/, each
+    with the C entry point its wrapper calls."""
+    from panagram_tpu_torch import _build
+
+    assert os.path.dirname(_build.LIB_PATH) == _build.BUILD_DIR
+    assert os.path.dirname(_build.BUILD_DIR) == os.path.dirname(_build.SRC_DIR)
+    srcs = _build.sources()
+    assert [os.path.basename(p) for p in srcs] == [
+        "masks_to_bytes.cu", "mosaic_probe.cu", "pack_mix.cu",
+        "popcount_colsums.cu", "probe_sorted.cu"]
+    text = "".join(open(p).read() for p in srcs)
+    for entry in kernels._SIGNATURES:
+        assert f'extern "C" int {entry}(' in text, entry
 
 
 def test_cpu_tensors_take_plain_versions_without_counting():
