@@ -18,7 +18,12 @@
    work only, for which the data sheet names no peak, and none needs more
    time for it than for its bytes.  The share of the bound is bound / cold
    time.  masks_to_bytes is timed beside the one torch call that computes
-   it (library_masks_to_bytes).
+   it (library_masks_to_bytes).  Then one whole ops.anchor.anchor_chunk on
+   the same inputs: it must make no host synchronisation (torch's sync
+   debug mode set to "error" around it), and its warm and cold times are
+   printed beside the sums of its four kernels as a line of its own,
+   {"chunk": {...}}; the difference is the library operations between the
+   kernels.
 4. The mosaic probe tool: ``panagram_tpu_torch.tools.mosaic_probe.main()``
    in process must print four True lines and launch its kernel.
 5. The slice: 30 founder-structured genomes of 5 Mbp (seed 0) are written
@@ -28,7 +33,10 @@
    launch counter must have risen during that run, every output file must
    exist and be consistent, and the first 2^17 positions of g0's bitmap
    must equal the numpy oracle against the saved dictionary.  The count
-   stage's peak device memory is printed.
+   stage's peak device memory is printed; the dict stage's must stay under
+   DICT_PEAK_PER_PAIR bytes per (key, genome) pair.  Anchored k-mers/s is
+   printed over the whole anchor stages and over them less their finish
+   phase (the embeddings).
 6. The device-dict slice: the same genomes through ``--device-dict``.  Its
    pandict.npz must be the slice's dictionary mixed (keys in unsigned mixed
    order), its anchor files byte-identical to the slice's, and pack_mix
@@ -86,25 +94,30 @@ import numpy as np
 import torch
 
 from panagram_tpu_torch.tools.kernel_times import (
+    CHUNK,
+    K,
     Flush,
+    chunk_inputs,
+    chunk_times,
     cold_ms,
+    kernel_cases,
     one_call_ms,
     warm_ms,
 )
 
-K = 31
-CHUNK = 1 << 22
 GENOMES, GENOME_BP, ANCHORS = 30, 5_000_000, ("g0", "g1", "g2")
 ORACLE_POSITIONS = 1 << 17
 READ_LEN, READ_COVERAGE, READ_SUBST = 150, 10, 0.005
 GENE_EVERY, REPEAT_EVERY = 5_000, 50_000
 UMAP_BIN = 100_000
-DICT_KEYS = 13_000_000    # kernel-phase table: the slice's dictionary size
 LAYOUT_KEYS = 100_000_000  # layout phase: a ~1e8-key W=1 table
 # the share of its lookup.layout_bytes model a layout's measured transients
 # must reach: the model may over-count by at most a fifth
 MODEL_FLOOR = 0.8
 MOSAIC_SIZES = (1024, 1 << 24)
+# bytes of device memory per (key, genome) pair the one-device dict stage
+# may peak at: the merge's sort holds about 52 (ops/dictionary._merge_sets)
+DICT_PEAK_PER_PAIR = 64
 # the card's device-memory rate (NVIDIA's H100 SXM data sheet)
 MEM_RATE = 3.35e12
 
@@ -145,73 +158,39 @@ def max_abs_err(got, want) -> int:
 
 
 def kernel_phase(dev, ngenomes: int, rng, flush) -> dict:
-    """Each kernel against its plain version on a main-path-sized chunk.
-    Returns {name: compare()'s dict}."""
-    from panagram_tpu_torch.ops import kernels
-    from panagram_tpu_torch.ops.codec import pack_bases_np, pack_kmers, u64_np
-    from panagram_tpu_torch.ops.lookup import BucketedDict, plan_probe
-
-    L = CHUNK + K - 1
-    codes = rng.integers(0, 4, L).astype(np.uint8)
-    codes[rng.choice(L, L // 50, replace=False)] = 255
-    # a dictionary the size of the slice's (~1.3e7 keys): half of this
-    # chunk's k-mers plus absent keys, masks over ngenomes bits
-    canon, valid = pack_kmers(torch.from_numpy(codes).to(dev), K)
-    keys = u64_np(torch.unique(canon[valid]))
-    keys = keys[rng.random(len(keys)) < 0.5]
-    keys = np.unique(np.concatenate(
-        [keys, rng.integers(0, 1 << 62, max(DICT_KEYS - len(keys), 0),
-                            dtype=np.uint64)]))
-    W = (ngenomes + 31) // 32
-    masks = rng.integers(1, 1 << 32, (len(keys), W), dtype=np.uint64)
-    masks[:, -1] &= np.uint64((1 << (ngenomes - 32 * (W - 1))) - 1)
-    bd = BucketedDict.build_device(keys, masks.astype(np.uint32), ngenomes, K,
-                                   dev)
-    nbytes = (ngenomes + 7) // 8
-    print(f"  N={ngenomes} W={W}: table 2^{bd.nbits} x {bd.stride} u32 "
-          f"({bd.table.numel() * 4 / 2**30:.2f} GiB), {len(keys)} keys",
+    """Each kernel against its plain version on a main-path-sized chunk,
+    then one whole anchor_chunk on the same inputs, which must make no host
+    synchronisation.  Returns {name: compare()'s dict}."""
+    inp = chunk_inputs(dev, ngenomes, rng)
+    bd = inp.bd
+    print(f"  N={ngenomes} W={inp.W}: table 2^{bd.nbits} x {bd.stride} u32 "
+          f"({bd.table.numel() * 4 / 2**30:.2f} GiB), {inp.nkeys} keys",
           flush=True)
-
-    packed, nmask, _ = pack_bases_np(codes)
-    p, n = torch.from_numpy(packed).to(dev), torch.from_numpy(nmask).to(dev)
-    hi, lo = kernels.pack_mix(p, n, L, K, CHUNK)
-    plan = plan_probe(hi, lo, bd.nbits)
-    pargs = (plan.qhi, plan.qlo, plan.blo, bd.table, bd.nbits, bd.cap,
-             bd.nwords, plan.span, plan.tile_q)
-    rows = kernels.probe_sorted(*pargs)
-    torch.cuda.synchronize()
-    hit_frac = float((rows != 0).any(dim=1).float().mean())
-    print(f"  probe: span {plan.span} rows, {int(plan.out_span.sum())} "
-          f"queries out of span, {hit_frac:.3f} of positions hit", flush=True)
-
-    valid = ~((plan.qhi == -1) & (plan.qlo == -1))
-    touched = torch.unique(kernels.probe_rows(
-        plan.qhi, plan.blo, bd.nbits, plan.span, plan.tile_q)[valid]).numel()
-    print(f"  probe: {touched} distinct table rows of {bd.stride * 4} B "
-          f"touched by {int(valid.sum())} queries", flush=True)
-    shapes = {
-        "pack_mix": dict(L=L, k=K, Ppad=CHUNK),
-        "probe_sorted": dict(Q=CHUNK, nwords=W, tile_q=plan.tile_q,
-                             stride=bd.stride, rows_touched=touched),
-        "fused_popcount_colsums": dict(P=CHUNK, W=W, ngenomes=32 * W),
-        "masks_to_bytes": dict(P=CHUNK, W=W, nbytes=nbytes),
-    }
-    cases = {
-        "pack_mix": (lambda: kernels.pack_mix(p, n, L, K, CHUNK),
-                     lambda: kernels.pack_mix_plain(p, n, L, K, CHUNK)),
-        "probe_sorted": (lambda: (kernels.probe_sorted(*pargs),),
-                         lambda: (kernels.probe_sorted_plain(*pargs),)),
-        "fused_popcount_colsums": (
-            lambda: kernels.fused_popcount_colsums(rows, 32 * W),
-            lambda: kernels.fused_popcount_colsums_plain(rows, 32 * W)),
-        "masks_to_bytes": (lambda: (kernels.masks_to_bytes(rows, nbytes),),
-                           lambda: (kernels.masks_to_bytes_plain(rows, nbytes),)),
-    }
-    library = {"masks_to_bytes": lambda: library_masks_to_bytes(rows, nbytes)}
-    out = {name: compare(name, f"N={ngenomes}", kern, plain, shapes[name],
+    kc = kernel_cases(inp)
+    print(f"  probe: window of {kc.plan.span} rows (the whole table), "
+          f"{int(kc.plan.out_span.sum())} queries out of span, "
+          f"{kc.hit_frac:.3f} of positions hit; {kc.touched} distinct table "
+          f"rows of {bd.stride * 4} B touched by {kc.queries} queries",
+          flush=True)
+    library = {"masks_to_bytes":
+               lambda: library_masks_to_bytes(kc.rows, inp.nbytes)}
+    out = {name: compare(name, f"N={ngenomes}", kern, plain, kc.shapes[name],
                          flush, library.get(name))
-           for name, (kern, plain) in cases.items()}
-    del bd, rows, plan
+           for name, (kern, plain) in kc.cases.items()}
+    chunk = chunk_times(inp, flush, {
+        n: {"warm_ms": r["warm_ms"], "cold_ms": r["cold_ms"]}
+        for n, r in out.items()})
+    if chunk["host_syncs"]:
+        raise AssertionError("anchor_chunk made the host wait for the card "
+                             "(torch's sync debug mode raised)")
+    print(f"  anchor_chunk, whole       no host synchronisation; warm "
+          f"{chunk['warm_ms']:.5f} ms, cold {chunk['cold_ms']:.5f} ms; its "
+          f"four kernels {chunk['kernels_warm_ms']:.5f} / "
+          f"{chunk['kernels_cold_ms']:.5f} ms; the library operations "
+          f"between them {chunk['around_kernels_warm_ms']:.5f} / "
+          f"{chunk['around_kernels_cold_ms']:.5f} ms; host time per call "
+          f"{chunk['host_ms']:.5f} ms", flush=True)
+    print(json.dumps({"chunk": chunk}), flush=True)
     torch.cuda.empty_cache()
     return out
 
@@ -346,10 +325,9 @@ def stage_walls(prefix: str) -> dict:
     return walls
 
 
-def count_peaks(pipeline, peaks: list):
-    """Wrap pipeline.count_genome so that each call appends the peak device
-    memory it allocated above what was allocated before it."""
-    real = pipeline.count_genome
+def stage_peaks(real, peaks: list):
+    """Wrap a stage function of pipeline so that each call appends the peak
+    device memory it allocated above what was allocated before it."""
 
     def counted(*args, **kwargs):
         torch.cuda.synchronize()
@@ -360,7 +338,7 @@ def count_peaks(pipeline, peaks: list):
         peaks.append(torch.cuda.max_memory_allocated() - base)
         return out
 
-    return real, counted
+    return counted
 
 
 def slice_phase(work: str, card: str) -> tuple[dict, dict, int]:
@@ -371,7 +349,7 @@ def slice_phase(work: str, card: str) -> tuple[dict, dict, int]:
     from panagram_tpu_torch.__main__ import main
     from panagram_tpu_torch.io.bgzf import BgzfReader, decompress_file
     from panagram_tpu_torch.ops import kernels
-    from panagram_tpu_torch.ops.dictionary import PanKmerDict
+    from panagram_tpu_torch.ops.dictionary import PanKmerDict, npz_member
     from panagram_tpu_torch.ops.ref_impl import anchor_np, masks_to_bytes_np
 
     t0 = time.perf_counter()
@@ -380,7 +358,10 @@ def slice_phase(work: str, card: str) -> tuple[dict, dict, int]:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     prefix = os.path.join(work, "idx")
     peaks: list = []
-    real, pipeline.count_genome = count_peaks(pipeline, peaks)
+    dict_peaks: list = []
+    real = pipeline.count_genome, pipeline.build_dict_stage
+    pipeline.count_genome = stage_peaks(real[0], peaks)
+    pipeline.build_dict_stage = stage_peaks(real[1], dict_peaks)
     kernels.reset_launches()
     t0 = time.perf_counter()
     try:
@@ -388,10 +369,10 @@ def slice_phase(work: str, card: str) -> tuple[dict, dict, int]:
               "--prefix", prefix, "--anchor-genomes", *ANCHORS])
         torch.cuda.synchronize()
     finally:
-        pipeline.count_genome = real
+        pipeline.count_genome, pipeline.build_dict_stage = real
     wall = time.perf_counter() - t0
-    # count_peaks resets the peak before each genome's count: this is the
-    # peak of the last count and of every stage after it
+    # stage_peaks resets the peak before the dict stage: this is the peak
+    # of that stage and of every stage after it
     build_peak = torch.cuda.max_memory_allocated()
     launches = dict(kernels.launches)
     print(f"index build: {wall:.2f} s wall, launches {launches}", flush=True)
@@ -401,6 +382,15 @@ def slice_phase(work: str, card: str) -> tuple[dict, dict, int]:
     print(f"count stage peak device memory [{card}]: "
           f"{max(peaks) / 2**20:.1f} MiB (largest of {len(peaks)} genomes, "
           f"2^22-position chunks)", flush=True)
+    pairs = sum(len(npz_member(os.path.join(prefix, "kmc", f"g{g}.kmers.npz"),
+                               "kmers", mmap=True)) for g in range(GENOMES))
+    (dict_peak,) = dict_peaks
+    print(f"dict stage peak device memory [{card}]: "
+          f"{dict_peak / 2**30:.3f} GiB for {pairs} (key, genome) pairs, "
+          f"{dict_peak / pairs:.1f} B per pair", flush=True)
+    if dict_peak > DICT_PEAK_PER_PAIR * pairs:
+        raise AssertionError(f"the dict stage peaked at {dict_peak / pairs:.1f}"
+                             f" B per pair, over {DICT_PEAK_PER_PAIR}")
 
     N, nbytes = GENOMES, (GENOMES + 7) // 8
     need = [os.path.join(prefix, f) for f in
@@ -463,13 +453,17 @@ def slice_phase(work: str, card: str) -> tuple[dict, dict, int]:
     print(f"  count (30 genomes)  {count_s:9.3f} s", flush=True)
     for s in ["dict", "layout"] + [f"anchor.{a}" for a in ANCHORS] + ["mash.triangle"]:
         print(f"  {s:18s}  {walls[s]:9.3f} s", flush=True)
+    finish_s = 0.0
     for a in ANCHORS:
         with open(os.path.join(prefix, "logs", f"anchor.{a}.log.txt")) as f:
             phases = [line for line in f if "anchor phases:" in line]
         print(f"  {a} {phases[-1].split('] ', 1)[1].strip()}", flush=True)
+        finish_s += float(phases[-1].split("finish=")[1].split("s")[0])
     print(f"anchored k-mers/s [{card}]: {len(ANCHORS) * nk / anchor_s:.4g} "
-          f"({len(ANCHORS)} x {nk} positions in {anchor_s:.3f} s of anchor "
-          f"stages); peak device memory after the count stage "
+          f"over the whole anchor stages ({len(ANCHORS)} x {nk} positions in "
+          f"{anchor_s:.3f} s), {len(ANCHORS) * nk / (anchor_s - finish_s):.4g} "
+          f"over the anchor stages less their finish phase (the embeddings, "
+          f"{finish_s:.3f} s); peak device memory after the count stage "
           f"{build_peak / 2**30:.3f} GiB", flush=True)
     return launches, seqs, build_peak
 

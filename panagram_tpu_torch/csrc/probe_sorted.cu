@@ -7,7 +7,9 @@
 // are compared with the full (hi, lo) pair, and a hit emits the slot's W
 // mask words.  A miss gives 0, and the all-ones pair never matches.  A
 // query outside its tile's window reads a wrong row and so misses; its
-// caller (ops/lookup.py bucket_query_sorted_pre) fixes those up.
+// caller (ops/lookup.py bucket_query_sorted_pre) fixes those up.  Its
+// default window is the whole table (blo = 0, span = 2^nbits, which for
+// nbits = 32 needs the 64-bit span), so that every query reads its own row.
 //
 // One thread per query.  The TPU kernel copied each tile's window of rows
 // into VMEM and selected rows with a one-hot matmul, because Mosaic cannot
@@ -30,7 +32,7 @@ __global__ void probe_sorted_kernel(const uint32_t* __restrict__ qhi,
                                     const int32_t* __restrict__ blo,
                                     const uint32_t* __restrict__ table,
                                     long long Q, int nbits, int cap, int nwords,
-                                    int stride, int span, int tile_q,
+                                    int stride, long long span, int tile_q,
                                     uint32_t* __restrict__ out) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= Q) return;
@@ -59,8 +61,8 @@ __global__ void probe_sorted_kernel(const uint32_t* __restrict__ qhi,
 
 extern "C" int pg_probe_sorted(const void* qhi, const void* qlo, const void* blo,
                                const void* table, long long Q, int nbits, int cap,
-                               int nwords, int stride, int span, int tile_q, void* out,
-                               void* stream) {
+                               int nwords, int stride, long long span, int tile_q,
+                               void* out, void* stream) {
     const int threads = 256;
     const long long blocks = (Q + threads - 1) / threads;
     probe_sorted_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(

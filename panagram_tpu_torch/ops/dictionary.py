@@ -3,7 +3,8 @@
 Genome g contributes bit (g % 32) of mask word (g // 32).  The merge sorts
 the concatenated per-genome key sets on the device and adds each genome's
 one-hot word into its key's segment; every (key, genome) pair occurs once,
-so the integer sum is the OR and does not depend on order.
+so the integer sum is the OR and does not depend on order.  The same merge
+serves the mesh's range shards (parallel/shard.py).
 
 ``PanKmerDict`` saves and loads the ``pandict.npz`` format of
 ``panagram_tpu.ops.dictionary`` unchanged, so either package reads the
@@ -20,27 +21,56 @@ import zipfile
 import numpy as np
 import torch
 
-from .codec import from_u64_np, u64_np
+from .codec import SIGN64, from_u64_np, u64_np
 
 # rows per pairwise block: entries of one block's product are <= 2^20 < 2^24,
 # so float32 holds every partial sum exactly
 PAIRWISE_BLOCK = 1 << 20
 
 
-def _merge_sets(keys: torch.Tensor, gids: torch.Tensor, nwords: int):
-    """keys int64 [T] (canonical, < 2^62), gids int64 [T] -> (distinct
-    sorted keys int64 [D], masks int64 [D, W] holding u32 values)."""
-    keys_s, order = torch.sort(keys)
+def _merge_sets(pairs: list, nwords: int):
+    """[keys int64 [T], genome ids int32 [T]] -> (distinct keys int64 [D]
+    in unsigned order, masks int32 [D, W] holding u32 bits): each pair's
+    one-hot word added into its key's row, which is the OR because every
+    (key, genome) pair occurs once.  Keys are any u64 bit patterns
+    (canonical k-mers, mixed keys, SENTINEL): they sort through the flip
+    of codec.flip64.
+
+    The sort's moment is the peak, about 52 bytes per pair on a CUDA
+    device (keys 8, ids 4, sorted keys 8, order 8, the radix sort's index
+    input and spare buffers 24), so nothing else is alive then and nothing
+    wide after: the list is emptied and its tensors consumed (the keys are
+    flipped in place), each tensor is dropped once spent, the segment ids
+    and the scatter index are int32 while they fit, and the words are
+    added by index_add_, which sorts nothing."""
+    keys, gids = pairs
+    pairs.clear()
+    T = keys.shape[0]
+    srt, order = torch.sort(keys.bitwise_xor_(SIGN64))   # flip64 in place
+    del keys
     g = gids[order]
-    is_start = torch.ones_like(keys_s, dtype=torch.bool)
-    is_start[1:] = keys_s[1:] != keys_s[:-1]
-    seg = torch.cumsum(is_start.to(torch.int64), 0) - 1
-    out_keys = keys_s[is_start]
-    masks = torch.zeros(out_keys.shape[0], nwords, dtype=torch.int64,
-                        device=keys.device)
-    masks.index_put_((seg, g // 32), torch.ones_like(g) << (g % 32),
-                     accumulate=True)
-    return out_keys, masks
+    del gids, order
+    ks = srt.bitwise_xor_(SIGN64)
+    del srt
+    is_start = torch.ones(T, dtype=torch.bool, device=ks.device)
+    torch.ne(ks[1:], ks[:-1], out=is_start[1:])
+    out = ks[is_start]
+    del ks
+    D = out.shape[0]
+    narrow = max(T, D * nwords) < 1 << 31
+    # torch.cumsum of an integer tensor gives int64 unless told otherwise
+    seg = torch.cumsum(is_start, 0,
+                       dtype=torch.int32 if narrow else torch.int64)
+    del is_start
+    flat = seg.sub_(1).mul_(nwords).add_(g >> 5)
+    del seg
+    # int32 1 << 31 is the sign bit: the same u32 bits, and distinct bits
+    # never carry
+    word = torch.ones_like(g).bitwise_left_shift_(g.bitwise_and_(31))
+    del g
+    masks = torch.zeros(D * nwords, dtype=torch.int32, device=out.device)
+    masks.index_add_(0, flat, word)
+    return out, masks.view(D, nwords)
 
 
 def npz_member(path: str, name: str, mmap: bool = False) -> np.ndarray:
@@ -139,10 +169,17 @@ def build_dictionary(genome_sets: list[np.ndarray], k: int,
     if total == 0:
         return PanKmerDict(np.zeros(0, np.uint64), np.zeros((0, W), np.uint32),
                            N, k)
-    keys = torch.cat([from_u64_np(s, device) for s in genome_sets])
-    gids = torch.cat([torch.full((len(s),), g, dtype=torch.int64,
-                                 device=device)
-                      for g, s in enumerate(genome_sets)])
-    out_keys, masks = _merge_sets(keys, gids, W)
+    # one buffer filled set by set: a concatenation would hold every set
+    # twice
+    keys = torch.empty(total, dtype=torch.int64, device=device)
+    gids = torch.empty(total, dtype=torch.int32, device=device)
+    off = 0
+    for g, s in enumerate(genome_sets):
+        keys[off:off + len(s)] = from_u64_np(s, device)
+        gids[off:off + len(s)] = g
+        off += len(s)
+    pairs = [keys, gids]
+    del keys, gids
+    out_keys, masks = _merge_sets(pairs, W)
     return PanKmerDict(u64_np(out_keys),
-                       masks.cpu().numpy().astype(np.uint32), N, k)
+                       masks.cpu().numpy().view(np.uint32), N, k)

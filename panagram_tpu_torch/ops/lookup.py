@@ -560,7 +560,16 @@ class ProbePlan:
     blo: torch.Tensor      # int32 [Qp / tile_q]: first table row per tile
     span: int              # table rows per tile window
     tile_q: int
-    out_span: torch.Tensor  # bool [Qp]: query outside its tile's window
+    nbits: int
+
+    @property
+    def out_span(self) -> torch.Tensor:
+        """bool [Qp]: query outside its tile's window.  All-ones pairs
+        never match, so they are exempt from the window."""
+        brow = bucket_row(self.qhi, self.nbits)
+        is_pad = (self.qhi == -1) & (self.qlo == -1)
+        first = self.blo.to(torch.int64).repeat_interleave(self.tile_q)
+        return ~(((brow - first) < self.span) | is_pad)
 
 
 def plan_probe(mhi0: torch.Tensor, mlo0: torch.Tensor, nbits: int,
@@ -568,14 +577,16 @@ def plan_probe(mhi0: torch.Tensor, mlo0: torch.Tensor, nbits: int,
     """Sort the queries on their hi word (as u32; ties need no order, the
     probe compares the full pair) and place each tile's window.
 
-    By default the window is as wide as the widest bucket range any tile
-    covers, so every query is in its window.  The TPU kernel copied the
-    window into its 4 MB VMEM and so had to cap it (1.5x the mean range,
-    leaving a tail for the fixup); this kernel reads rows straight from
-    device memory, where a wider window costs nothing.  That also keeps
-    the fast path under skew, such as the many identical N-window queries
-    of a gappy assembly, which widen the other tiles' ranges.  An explicit
-    `span` narrows the window (the tests use it to reach the fixup)."""
+    By default the window is the whole table, so every query reads its own
+    bucket row and none is out of span.  The TPU kernel copied the window
+    into its 4 MB VMEM and so had to cap it (1.5x the mean range, leaving a
+    tail for the fixup); this kernel reads rows straight from device
+    memory, where a wider window costs nothing.  That also keeps the fast
+    path under skew, such as the many identical N-window queries of a gappy
+    assembly, and it needs no look at the data: the default route queues
+    its work without waiting for the device.  An explicit `span` narrows
+    the window around each tile's first bucket (the tests use it to reach
+    the fixup)."""
     B = 1 << nbits
     Qp = mhi0.shape[0]
     if Qp % tile_q:
@@ -584,19 +595,12 @@ def plan_probe(mhi0: torch.Tensor, mlo0: torch.Tensor, nbits: int,
     _, perm = torch.sort(mhi0 ^ torch.iinfo(torch.int32).min)
     qhi = mhi0[perm]
     qlo = mlo0[perm]
-    brow = bucket_row(qhi, nbits)
-    first = brow[::tile_q]
-    # all-ones pairs never match, so they are exempt from the window
-    is_pad = (qhi == -1) & (qlo == -1)
     if span is None:
-        last = torch.where(is_pad, first.repeat_interleave(tile_q), brow)
-        span = int((last.view(-1, tile_q).amax(dim=1) - first).max()) + 1 \
-            if Qp else 1
+        blo = torch.zeros(Qp // tile_q, dtype=torch.int32, device=qhi.device)
+        return ProbePlan(qhi, qlo, perm, blo, B, tile_q, nbits)
     span = min(max(span, 1), B)
-    blo = torch.clamp(first, 0, B - span)
-    out_span = ~(((brow - blo.repeat_interleave(tile_q)) < span) | is_pad)
-    return ProbePlan(qhi, qlo, perm, blo.to(torch.int32), span, tile_q,
-                     out_span)
+    blo = torch.clamp(bucket_row(qhi[::tile_q], nbits), 0, B - span)
+    return ProbePlan(qhi, qlo, perm, blo.to(torch.int32), span, tile_q, nbits)
 
 
 def bucket_query_sorted_pre(mhi0: torch.Tensor, mlo0: torch.Tensor,
@@ -606,21 +610,22 @@ def bucket_query_sorted_pre(mhi0: torch.Tensor, mlo0: torch.Tensor,
                             tile_q: int = TILE_Q) -> torch.Tensor:
     """Merge probe of mixed query pairs in any order: mhi0/mlo0 int32 [Qp]
     (all-ones pairs are padding; Qp % tile_q == 0) -> mask rows int32
-    [out_len, W], row i answering query i."""
+    [out_len, W], row i answering query i.  With the default window no
+    value comes back to the host; an explicit `span` counts the queries
+    out of their windows and fixes them up, or falls back."""
     Qp = mhi0.shape[0]
     plan = plan_probe(mhi0, mlo0, nbits, span, tile_q)
-    fixup = max(Qp >> 6, tile_q)
-    idx_out = torch.nonzero(plan.out_span).squeeze(1)
-    if idx_out.shape[0] <= fixup:
-        rows = kernels.probe_sorted(plan.qhi, plan.qlo, plan.blo, table,
-                                    nbits, cap, nwords, plan.span,
-                                    plan.tile_q)
-        if idx_out.shape[0]:
-            rows[idx_out] = bucket_query(plan.qhi[idx_out],
-                                         plan.qlo[idx_out], table, nbits,
-                                         cap, nwords)
-        out = torch.empty_like(rows)
-        out[plan.perm] = rows      # inverse permutation
-    else:
-        out = bucket_query(mhi0, mlo0, table, nbits, cap, nwords)
+    idx_out = None
+    if span is not None:
+        idx_out = torch.nonzero(plan.out_span).squeeze(1)
+        if idx_out.shape[0] > max(Qp >> 6, tile_q):
+            return bucket_query(mhi0, mlo0, table, nbits, cap,
+                                nwords)[:out_len]
+    rows = kernels.probe_sorted(plan.qhi, plan.qlo, plan.blo, table, nbits,
+                                cap, nwords, plan.span, plan.tile_q)
+    if idx_out is not None and idx_out.shape[0]:
+        rows[idx_out] = bucket_query(plan.qhi[idx_out], plan.qlo[idx_out],
+                                     table, nbits, cap, nwords)
+    out = torch.empty_like(rows)
+    out[plan.perm] = rows      # inverse permutation
     return out[:out_len]

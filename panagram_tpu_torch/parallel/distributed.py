@@ -70,6 +70,7 @@ def build_index_distributed(samples_or_dir, prefix=None, num_processes=1,
         count_genome,
         dist_stage,
         layout_stage,
+        preload_embedding_modules,
         resolve_device,
     )
 
@@ -82,6 +83,8 @@ def build_index_distributed(samples_or_dir, prefix=None, num_processes=1,
         _wait_for([config_path(target), samples_path(target)])
         index = Index(target)
     _clear_done_markers(index.prefix, process_id)
+    if index.anchor_genomes[process_id::num_processes]:
+        preload_embedding_modules()
 
     mine = [n for i, n in enumerate(index.genome_names)
             if i % num_processes == process_id

@@ -37,17 +37,15 @@ import torch
 from ..ops import kernels
 from ..ops.codec import (
     SENTINEL,
-    SIGN64,
     flip64,
     from_u64_np,
     mix64,
     pack_bases_np,
     split64,
-    to_i32,
     u32,
     u64_np,
 )
-from ..ops.dictionary import PanKmerDict
+from ..ops.dictionary import PanKmerDict, _merge_sets
 from ..ops.lookup import (
     TILE_Q,
     bucket_query_sorted_pre,
@@ -155,31 +153,6 @@ def _layout_params(total_keys: int, n_shards: int, nwords: int, extra: int,
     return nbits, cap, stride
 
 
-def _merge_pairs(pairs: list, nwords: int):
-    """Received [mixed keys, genome ids] (int64 [T] each) -> (distinct keys
-    in unsigned order, masks int32 [D, W]): one-hot words added per key,
-    which is their OR because every (key, genome) pair occurs once.  The
-    list is emptied and its tensors consumed (the keys are flipped in
-    place), so that each is freed as soon as it is spent."""
-    keys, gids = pairs
-    pairs.clear()
-    srt, order = torch.sort(keys.bitwise_xor_(SIGN64))   # flip64 in place
-    del keys
-    g = gids[order]
-    del gids, order
-    ks = srt.bitwise_xor_(SIGN64)
-    is_start = torch.ones_like(ks, dtype=torch.bool)
-    is_start[1:] = ks[1:] != ks[:-1]
-    seg = torch.cumsum(is_start.to(torch.int64), 0) - 1
-    out = ks[is_start]
-    del ks, is_start
-    masks = torch.zeros(out.shape[0] * nwords, dtype=torch.int64,
-                        device=out.device)
-    flat = seg.mul_(nwords).add_(g // 32)
-    masks.scatter_add_(0, flat, torch.ones_like(g) << (g % 32))
-    return out, to_i32(masks.view(out.shape[0], nwords))
-
-
 def _shard_layout(mesh: Mesh, out_keys: torch.Tensor, out_masks: torch.Tensor,
                   total: int, nwords: int, what: str):
     """Lay out this rank's keys (low-bit buckets) with the geometry of
@@ -219,11 +192,11 @@ def sharded_build_dictionary(genome_sets, mesh: Mesh, ngenomes: int, k: int):
         a, b = max(lo, off), min(hi, off + len(s))
         if a < b:
             keys.append(s[a - off:b - off])
-            gids.append(np.full(b - a, g, np.int64))
+            gids.append(np.full(b - a, g, np.int32))
         off += len(s)
     keys = from_u64_np(np.concatenate(keys) if keys else np.zeros(0, U64), dev)
     gids = torch.from_numpy(np.concatenate(gids) if gids
-                            else np.zeros(0, np.int64)).to(dev)
+                            else np.zeros(0, np.int32)).to(dev)
     m = mix64(keys)
     del keys
     order, counts = _by_owner(m, S)
@@ -231,7 +204,7 @@ def sharded_build_dictionary(genome_sets, mesh: Mesh, ngenomes: int, k: int):
     del m
     pairs.append(all_to_all(mesh, gids[order], counts)[0])
     del gids, order
-    out_keys, out_masks = _merge_pairs(pairs, W)
+    out_keys, out_masks = _merge_sets(pairs, W)
     table, nbits, cap, stride = _shard_layout(mesh, out_keys, out_masks, total,
                                               W, "sharded build")
     sbd = ShardedBucketedDict(table, nbits, cap, stride, ngenomes, k, W, S)

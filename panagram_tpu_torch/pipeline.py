@@ -55,6 +55,7 @@ from .parallel.shard import (
     shard_dictionary_genomes,
     sharded_build_dictionary,
 )
+from .umap_embed import preload as preload_embedding_modules
 
 logger = logging.getLogger(__name__)
 _LOG_FORMAT = "[%(asctime)s %(levelname)s] %(message)s"
@@ -359,6 +360,8 @@ def _mesh_rank(mesh: Mesh, prefix: str, force: bool, strategy: str) -> dict:
                         format=_LOG_FORMAT, datefmt=_LOG_DATEFMT)
     index = Index(prefix)
     dev = mesh.device
+    if mesh.writer and index.anchor_genomes:
+        preload_embedding_modules()    # only writers embed
     if mesh.writer:
         for name in index.genome_names:
             if index.genomes[name].fasta is not None:
@@ -425,6 +428,8 @@ def build_index(samples_or_dir: str, prefix=None, force=False,
             dev.type, num_processes, process_id, coordinator)
         return index
 
+    if index.anchor_genomes:
+        preload_embedding_modules()
     if device_dict:
         build_dict_device(index, dev, force=force)
     else:

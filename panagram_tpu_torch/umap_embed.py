@@ -35,6 +35,15 @@ RANDOM_STATE = 42
 N_OVERSAMPLES = 10
 
 
+def preload():
+    """Import the scipy modules the embeddings call (the first import takes
+    most of a second).  A build calls this once per process before its
+    first stage timer, so that no anchor stage's wall holds the import;
+    importing this module does not."""
+    import scipy.linalg  # noqa: F401
+    import scipy.spatial  # noqa: F401
+
+
 def svd_flip_rows(u, vt):
     """scikit-learn's svd_flip(u, vt, u_based_decision=False): each row of
     vt (and column of u) signed so that its largest |entry| is positive."""

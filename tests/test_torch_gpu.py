@@ -20,7 +20,7 @@ import torch
 
 from panagram_tpu_torch import index as port_index
 from panagram_tpu_torch.io.fasta import seq_to_codes
-from panagram_tpu_torch.ops import count, devdict, kernels, lookup
+from panagram_tpu_torch.ops import count, devdict, dictionary, kernels, lookup
 from panagram_tpu_torch.ops.anchor import anchor_chunk
 from panagram_tpu_torch.ops.codec import pack_bases_np, pack_kmers, u64_np
 from panagram_tpu_torch.ops.lookup import (
@@ -81,6 +81,106 @@ def test_pack_mix_kernel(cuda, k):
     assert kernels.launches["pack_mix"] == before + 1
     whi, wlo = kernels.pack_mix_plain(p, n, L, k, Ppad)
     assert torch.equal(hi.cpu(), whi) and torch.equal(lo.cpu(), wlo)
+
+
+def _sliced_streams(rng, L, cuda):
+    """packed and nmask as stream_anchor_chunks passes them: neighbouring
+    slices of one device buffer, here one byte past its start, so that
+    neither pointer is 4-byte aligned for every L."""
+    packed, nmask, _ = pack_bases_np(_chunk(rng, L))
+    ib = torch.from_numpy(np.concatenate(
+        [np.array([0xA5], np.uint8), packed, nmask])).to(cuda)
+    n4 = len(packed)
+    return ib[1:1 + n4], ib[1 + n4:]
+
+
+PACK_LENGTHS = [31, 64, 1027, (1 << 16) + 37, (1 << 22) + 30]
+
+
+@pytest.mark.parametrize("k", [1, 15, 21, 31])
+@pytest.mark.parametrize("L", PACK_LENGTHS)
+def test_pack_mix_kernel_grid(cuda, k, L):
+    """Byte-aligned input slices; outputs inside larger buffers at a
+    16-byte aligned offset (128-bit stores) and at a 4-byte one (word
+    stores), whose guard words must stay; every output length the callers
+    use.  The plain version at the longest Ppad gives all the others."""
+    rng = np.random.default_rng(100 * k + L % 1000)
+    p, n = _sliced_streams(rng, L, cuda)
+    assert p.is_contiguous() and n.is_contiguous()
+    P = L - k + 1
+    top = -(-(P + 3) // TILE_Q) * TILE_Q
+    whi, wlo = kernels.pack_mix_plain(p, n, L, k, top)
+    for Ppad in (P, P + 1, P + 2, P + 3, top):
+        for offset in (0, 4, 1):
+            bufs = [torch.full((offset + Ppad + 8,), 0x5A5A5A5A,
+                               dtype=torch.int32, device=cuda)
+                    for _ in range(2)]
+            hi, lo = (b[offset:offset + Ppad] for b in bufs)
+            before = kernels.launches["pack_mix"]
+            kernels._pack_mix_into(p, n, L, k, hi, lo)
+            torch.cuda.synchronize()
+            assert kernels.launches["pack_mix"] == before + 1
+            assert torch.equal(hi, whi[:Ppad]), (Ppad, offset)
+            assert torch.equal(lo, wlo[:Ppad]), (Ppad, offset)
+            for b in bufs:
+                assert bool((b[:offset] == 0x5A5A5A5A).all())
+                assert bool((b[offset + Ppad:] == 0x5A5A5A5A).all()), Ppad
+
+
+@pytest.mark.parametrize("k", [5, 31])
+def test_pack_mix_kernel_short_and_long_streams(cuda, k):
+    """Bytes past `packed` read as 0 and past `nmask` as 0xFF; a stream
+    longer than the positions need is ignored past them; a grid of one
+    block loops over the whole chunk."""
+    rng = np.random.default_rng(k)
+    L = 70_000
+    packed, nmask, _ = pack_bases_np(_chunk(rng, L))
+    Ppad = -(-(L - k + 1) // TILE_Q) * TILE_Q
+    for npk, nnm in ((len(packed) // 2, len(nmask)),
+                     (len(packed), len(nmask) // 2),
+                     (len(packed) + 40, len(nmask) + 40), (0, 0)):
+        p = torch.from_numpy(np.resize(packed, npk)).to(cuda)
+        n = torch.from_numpy(np.resize(nmask, nnm)).to(cuda)
+        whi, wlo = kernels.pack_mix_plain(p.cpu(), n.cpu(), L, k, Ppad)
+        hi, lo = kernels.pack_mix(p, n, L, k, Ppad)
+        torch.cuda.synchronize()
+        assert torch.equal(hi.cpu(), whi) and torch.equal(lo.cpu(), wlo)
+        kernels._pack_mix_into(p, n, L, k, hi.zero_(), lo.zero_(),
+                               max_blocks=1)
+        torch.cuda.synchronize()
+        assert torch.equal(hi.cpu(), whi) and torch.equal(lo.cpu(), wlo)
+
+
+def test_pack_mix_from_three_threads(cuda):
+    """Three threads, each on a stream of its own, launch pack_mix at once
+    on different inputs: every result is right and no launch is lost."""
+    calls = 30
+    rng = np.random.default_rng(8)
+    jobs = []
+    for k, L in ((31, (1 << 20) + 30), (21, (1 << 19) + 7), (15, 300_001)):
+        p, n = _sliced_streams(rng, L, cuda)
+        Ppad = -(-(L - k + 1) // TILE_Q) * TILE_Q
+        jobs.append((p, n, L, k, Ppad, kernels.pack_mix_plain(p, n, L, k, Ppad)))
+    torch.cuda.synchronize()
+    before = kernels.launches["pack_mix"]
+    wrong = []
+
+    def run(p, n, L, k, Ppad, want):
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            for _ in range(calls):
+                hi, lo = kernels.pack_mix(p, n, L, k, Ppad)
+                if not (torch.equal(hi, want[0]) and torch.equal(lo, want[1])):
+                    wrong.append(k)
+
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert not wrong
+    assert kernels.launches["pack_mix"] - before == len(jobs) * calls
 
 
 @pytest.mark.parametrize("ngenomes", [30, 40])
@@ -272,6 +372,73 @@ def test_anchor_chunk_matches_oracle(cuda):
         got = bucket_query_sorted_pre(hi, lo, bd.table, bd.nbits, bd.cap,
                                       bd.nwords, 1 << 16, span=span)
         assert torch.equal(got, want)
+
+
+def test_default_probe_route_makes_no_host_sync(cuda):
+    """With the default window neither the merge probe nor the whole dense
+    chunk brings a value back to the host: torch's sync debug mode raises
+    on any synchronising call.  An explicit span does (it counts the
+    queries out of their windows), and gives the same rows."""
+    rng = np.random.default_rng(6)
+    L = (1 << 17) + K - 1
+    codes = _chunk(rng, L)
+    codes[5000:40_000] = 255         # a gap: a run of identical N queries
+    keys, masks = _dict_for(rng, codes, 30)
+    bd = BucketedDict.build(keys, masks, 30, K).to(cuda)
+    packed, nmask, _ = pack_bases_np(codes)
+    p, n = torch.from_numpy(packed).to(cuda), torch.from_numpy(nmask).to(cuda)
+    hi, lo = kernels.pack_mix(p, n, L, K, 1 << 17)
+    want = bucket_query(hi, lo, bd.table, bd.nbits, bd.cap, bd.nwords)
+    ref = anchor_chunk(p, n, L, K, bd.table, bd.nbits, bd.cap, bd.nwords, 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = bucket_query_sorted_pre(hi, lo, bd.table, bd.nbits, bd.cap,
+                                      bd.nwords, 1 << 17)
+        out = anchor_chunk(p, n, L, K, bd.table, bd.nbits, bd.cap, bd.nwords,
+                           4)
+        with pytest.raises(RuntimeError):
+            bucket_query_sorted_pre(hi, lo, bd.table, bd.nbits, bd.cap,
+                                    bd.nwords, 1 << 17, span=8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    narrow = bucket_query_sorted_pre(hi, lo, bd.table, bd.nbits, bd.cap,
+                                     bd.nwords, 1 << 17, span=8)
+    assert torch.equal(narrow, want)
+
+
+@pytest.mark.parametrize("ngenomes", [30, 40, 100])
+def test_merge_memory_bounded_per_pair(cuda, ngenomes):
+    """The dictionary merge of T (key, genome) pairs peaks under 64 bytes
+    per pair beside nothing else (its sort holds about 52), and equals the
+    CPU's merge; bit 31 of a mask word and words past the first are
+    covered by 40 and 100 genomes."""
+    rng = np.random.default_rng(ngenomes)
+    T = 20_000_000
+    base = rng.integers(0, 1 << 62, T // 8, dtype=np.int64)
+    base[:2] = [(1 << 62) - 1, 0]
+    keys = np.concatenate([rng.permutation(base)[:T // ngenomes]
+                           for _ in range(ngenomes)])
+    gids = np.repeat(np.arange(ngenomes, dtype=np.int32), T // ngenomes)
+    W = (ngenomes + 31) // 32
+    # distinct (key, genome) pairs: each genome's keys are distinct
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    pairs = [torch.from_numpy(keys).to(cuda), torch.from_numpy(gids).to(cuda)]
+    out_keys, out_masks = dictionary._merge_sets(pairs, W)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - start
+    assert not pairs
+    assert peak <= 64 * len(keys), peak / len(keys)
+    wk, wm = dictionary._merge_sets(
+        [torch.from_numpy(keys), torch.from_numpy(gids)], W)
+    assert out_masks.dtype == torch.int32 and out_masks.shape == (len(wk), W)
+    assert torch.equal(out_keys.cpu(), wk) and torch.equal(out_masks.cpu(), wm)
 
 
 @pytest.mark.parametrize("n", [1024, 777, 1 << 20])
