@@ -36,7 +36,12 @@
    stage's peak device memory is printed; the dict stage's must stay under
    DICT_PEAK_PER_PAIR bytes per (key, genome) pair.  Anchored k-mers/s is
    printed over the whole anchor stages and over them less their finish
-   phase (the embeddings).
+   phase (the embeddings).  It prints which BGZF compressor ran ("bgzf
+   compressor: native", or "zlib (<why>)"), the count stage's phases
+   (FASTA parsing, device, npz write) summed over the genomes, the dict
+   stage's (npz read, device, npz write), each anchor's (encode, pack,
+   wait, copy, write, bins, finish) and the copy-back's share of the
+   anchor stages.
 6. The device-dict slice: the same genomes through ``--device-dict``.  Its
    pandict.npz must be the slice's dictionary mixed (keys in unsigned mixed
    order), its anchor files byte-identical to the slice's, and pack_mix
@@ -54,7 +59,17 @@
    bitmap with the fused_popcount_colsums kernel.  Prints the FASTQ count
    wall and reads/s, the anchor stage's wall at --cores 3 and 1, the
    annotate wall and the embedding walls.
-8. The mesh phase: the slice's genomes through ``--mesh 1`` (one spawned
+8. The read phase: the slice's index and the annotated tree opened with
+   ``Index(prefix)`` in read mode.  query_bitmap of g0 over random
+   windows, windows across BGZF block edges and the chromosome's last row
+   must equal the decompressed bitmap.1.gz, steps 100 and 200 step 1
+   sliced, ``bitdump -v`` through the CLI the numpy oracle; query_genes
+   must return every gene with the bitmap's popcounts, query_anno every
+   annotation type of the GFFs; genome_sizes must equal chrs.tsv and each
+   bitfreq_totals row sum to 1.  Prints the host's times for opening an
+   index, a 1-Mbp query, a whole chromosome at step 100 and a whole
+   chromosome's gene fetch.
+9. The mesh phase: the slice's genomes through ``--mesh 1`` (one spawned
    rank on NCCL) under ``--mesh-strategy range`` and ``genomes``, and
    through the two-process ``--num-processes 2`` build on the one card.
    Each tree must equal the slice's file for file (one writer per file, so
@@ -66,13 +81,13 @@
    raise naming the card count.  Prints each build's wall, its dict and
    anchor stage walls, and the rank's peak device memory beside the
    one-device build's.
-9. Layout phase: ~1e8 mixed keys drawn on the card (W=1) laid out by
+10. Layout phase: ~1e8 mixed keys drawn on the card (W=1) laid out by
    BucketedDict.build_device, the single-pass route, the chunked route and
    the single-pass route of the keys shuffled; the tables must be equal and
    a sample of keys must find their masks.  Each of these routes and the
    range-sharded layout (low-bit buckets, "bucket" mode) must hold its
    transients within lookup.layout_bytes and above MODEL_FLOOR of it.
-10. Prints one line per kernel (bytes, bound, share, launches
+11. Prints one line per kernel (bytes, bound, share, launches
    of the slice, library call), the kernels JSON line, the card line, and
    last {"ok": true, "device": {...}}.  Any failed check raises, so the script
    exits non-zero without that line; so does a machine without CUDA.
@@ -110,6 +125,7 @@ ORACLE_POSITIONS = 1 << 17
 READ_LEN, READ_COVERAGE, READ_SUBST = 150, 10, 0.005
 GENE_EVERY, REPEAT_EVERY = 5_000, 50_000
 UMAP_BIN = 100_000
+READ_WINDOWS, READ_MBP = 24, 1_000_000   # read phase: random windows, query
 LAYOUT_KEYS = 100_000_000  # layout phase: a ~1e8-key W=1 table
 # the share of its lookup.layout_bytes model a layout's measured transients
 # must reach: the model may over-count by at most a fifth
@@ -348,10 +364,12 @@ def slice_phase(work: str, card: str) -> tuple[dict, dict, int]:
     from panagram_tpu_torch import pipeline
     from panagram_tpu_torch.__main__ import main
     from panagram_tpu_torch.io.bgzf import BgzfReader, decompress_file
+    from panagram_tpu_torch.native import bgzf_native
     from panagram_tpu_torch.ops import kernels
     from panagram_tpu_torch.ops.dictionary import PanKmerDict, npz_member
     from panagram_tpu_torch.ops.ref_impl import anchor_np, masks_to_bytes_np
 
+    print(f"bgzf compressor: {bgzf_native.status()}", flush=True)
     t0 = time.perf_counter()
     seqs = make_genomes(work)
     print(f"generated {GENOMES} x {GENOME_BP / 1e6:g} Mbp genomes in "
@@ -362,6 +380,9 @@ def slice_phase(work: str, card: str) -> tuple[dict, dict, int]:
     real = pipeline.count_genome, pipeline.build_dict_stage
     pipeline.count_genome = stage_peaks(real[0], peaks)
     pipeline.build_dict_stage = stage_peaks(real[1], dict_peaks)
+    lines = _Lines()
+    pkg = logging.getLogger("panagram_tpu_torch")
+    pkg.addHandler(lines)
     kernels.reset_launches()
     t0 = time.perf_counter()
     try:
@@ -370,6 +391,7 @@ def slice_phase(work: str, card: str) -> tuple[dict, dict, int]:
         torch.cuda.synchronize()
     finally:
         pipeline.count_genome, pipeline.build_dict_stage = real
+        pkg.removeHandler(lines)
     wall = time.perf_counter() - t0
     # stage_peaks resets the peak before the dict stage: this is the peak
     # of that stage and of every stage after it
@@ -451,14 +473,26 @@ def slice_phase(work: str, card: str) -> tuple[dict, dict, int]:
     anchor_s = sum(v for s, v in walls.items() if s.startswith("anchor."))
     print(f"stage walls [{card}]:", flush=True)
     print(f"  count (30 genomes)  {count_s:9.3f} s", flush=True)
+    counted = [phase_values(m) for m in lines.lines
+               if m.startswith("count phases")]
+    print("  count phases, the 30 genomes' sums: " + " ".join(
+        f"{k}={sum(c[k] for c in counted):.3f}s" for k in counted[0]),
+        flush=True)
     for s in ["dict", "layout"] + [f"anchor.{a}" for a in ANCHORS] + ["mash.triangle"]:
         print(f"  {s:18s}  {walls[s]:9.3f} s", flush=True)
-    finish_s = 0.0
+    print("  " + next(m for m in lines.lines if m.startswith("dict phases")),
+          flush=True)
+    finish_s = copy_s = 0.0
     for a in ANCHORS:
         with open(os.path.join(prefix, "logs", f"anchor.{a}.log.txt")) as f:
             phases = [line for line in f if "anchor phases:" in line]
         print(f"  {a} {phases[-1].split('] ', 1)[1].strip()}", flush=True)
-        finish_s += float(phases[-1].split("finish=")[1].split("s")[0])
+        ph = phase_values(phases[-1].split("anchor phases:")[1])
+        finish_s += ph["finish"]
+        copy_s += ph["copy"]
+    print(f"copy-back of the anchor chunks' results [{card}]: {copy_s:.4f} s "
+          f"of the card's time in {anchor_s:.3f} s of anchor stages (share "
+          f"{copy_s / anchor_s:.4f})", flush=True)
     print(f"anchored k-mers/s [{card}]: {len(ANCHORS) * nk / anchor_s:.4g} "
           f"over the whole anchor stages ({len(ANCHORS)} x {nk} positions in "
           f"{anchor_s:.3f} s), {len(ANCHORS) * nk / (anchor_s - finish_s):.4g} "
@@ -466,6 +500,12 @@ def slice_phase(work: str, card: str) -> tuple[dict, dict, int]:
           f"{finish_s:.3f} s); peak device memory after the count stage "
           f"{build_peak / 2**30:.3f} GiB", flush=True)
     return launches, seqs, build_peak
+
+
+def phase_values(line: str) -> dict:
+    """{name: seconds} of a logged phases line ("... a=0.1s b=0.2s")."""
+    return {k: float(v.rstrip("s")) for k, v in
+            (w.split("=") for w in line.split() if "=" in w)}
 
 
 class _Lines(logging.Handler):
@@ -822,6 +862,138 @@ def full_index_phase(work: str, seqs: dict, card: str, dev) -> dict:
     return launches
 
 
+def read_phase(work: str, seqs: dict, card: str):
+    """The port's read path on the card's machine: Index(prefix) in read
+    mode over the slice's index and the full-index phase's annotated tree.
+    query_bitmap of g0 at step 1 over READ_WINDOWS random windows (seed 0),
+    windows across BGZF block edges and at the chromosome's end, against
+    the rows of the decompressed bitmap.1.gz; steps 100 and 200 against
+    step 1 sliced; `bitdump -v` of g0's first ORACLE_POSITIONS positions
+    through the CLI against the numpy oracle; every gene of every
+    chromosome by query_genes with the bitmap's popcounts, every
+    annotation type of the GFFs by query_anno; the aggregates.  Prints
+    the host's times for opening the index, a READ_MBP step-1 query, a
+    whole chromosome at step 100 and a whole chromosome's gene fetch."""
+    from panagram_tpu_torch.__main__ import main
+    from panagram_tpu_torch.index import Index
+    from panagram_tpu_torch.io.bgzf import MAX_BLOCK_DATA, decompress_file
+    from panagram_tpu_torch.ops.dictionary import PanKmerDict
+    from panagram_tpu_torch.ops.ref_impl import anchor_np
+
+    prefix = os.path.join(work, "idx")
+    N, nbytes, nk = GENOMES, (GENOMES + 7) // 8, GENOME_BP - K + 1
+    t0 = time.perf_counter()
+    idx = Index(prefix)
+    open_s = time.perf_counter() - t0
+    rows = np.frombuffer(decompress_file(os.path.join(
+        prefix, "anchor", "g0", "bitmap.1.gz")), np.uint8).reshape(-1, nbytes)
+    bits = np.unpackbits(rows, axis=1, bitorder="little")[:, :N]
+    rng = np.random.default_rng(0)
+    starts = rng.integers(0, nk, READ_WINDOWS)
+    windows = [(int(s), int(min(s + rng.integers(1, 300_000), nk)))
+               for s in starts]
+    per_block = MAX_BLOCK_DATA // nbytes
+    windows += [(per_block * j - 3, per_block * j + 5)
+                for j in (1, 2, nk // per_block // 2, nk // per_block)]
+    windows += [(nk - 1, nk), (nk - 1000, nk)]
+    for s, e in windows:
+        got = idx.query_bitmap("g0", "chr1", s, e)
+        if not (np.array_equal(got.values, bits[s:e])
+                and np.array_equal(got.index, np.arange(s, e))):
+            raise AssertionError(f"query_bitmap g0 chr1 {s}-{e} differs from "
+                                 "bitmap.1.gz")
+    for step in (100, 200):
+        if not np.array_equal(idx.query_bitmap("g0", "chr1", step=step).values,
+                              bits[::step]):
+            raise AssertionError(f"query_bitmap at step {step} differs from "
+                                 "step 1 sliced")
+        s = int(rng.integers(0, nk // 100)) * 100
+        if not np.array_equal(idx.query_bitmap("g0", "chr1", s, nk - 7,
+                                               step).values,
+                              bits[s:nk - 7:step]):
+            raise AssertionError(f"query_bitmap {s}- at step {step} differs")
+    print(f"read: query_bitmap of g0 over {len(windows)} windows (block edges "
+          f"every {per_block} rows, the last row) equals bitmap.1.gz; steps "
+          "100 and 200 equal step 1 sliced", flush=True)
+
+    pan = PanKmerDict.load(os.path.join(prefix, "kmc", "pandict.npz"))
+    oracle = anchor_np(seqs["g0"][:ORACLE_POSITIONS + K - 1], K, pan.keys,
+                       pan.masks)
+    obits = np.unpackbits(oracle.astype("<u4").view(np.uint8), axis=1,
+                          bitorder="little")[:, :N]
+    buf = io.StringIO()
+    sys_stdout, sys.stdout = sys.stdout, buf
+    try:
+        main(["bitdump", prefix, "g0", "chr1", "0", str(ORACLE_POSITIONS),
+              "-v"])
+    finally:
+        sys.stdout = sys_stdout
+    want = " ".join(f"g{g}" for g in range(N)) + "\n" + "".join(
+        " ".join(map(str, r)) + "\n" for r in obits)
+    if buf.getvalue() != want:
+        raise AssertionError("bitdump -v of g0's first positions differs from "
+                             "the numpy oracle")
+    print(f"read: bitdump -v of g0 0-{ORACLE_POSITIONS} through the CLI equals "
+          "the numpy oracle", flush=True)
+
+    sizes = {}
+    for a in ANCHORS:
+        with open(os.path.join(prefix, "anchor", a, "chrs.tsv")) as f:
+            f.readline()
+            sizes[a] = [int(line.split("\t")[2]) for line in f]
+    gs = dict(zip(idx.genome_sizes.index, idx.genome_sizes.values.tolist()))
+    if gs != {a: [sum(v), len(v)] for a, v in sizes.items()} or not np.allclose(
+            idx.bitfreq_totals.values.sum(axis=1), 1.0, rtol=0, atol=1e-12):
+        raise AssertionError(f"read aggregates: genome_sizes {gs}")
+    s = max(0, min(1_000_000, nk - READ_MBP))
+    t0 = time.perf_counter()
+    idx.query_bitmap("g0", "chr1", s, s + READ_MBP)
+    mbp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.query_bitmap("g0", "chr1", step=100)
+    chrom_s = time.perf_counter() - t0
+    idx.close()
+
+    full = os.path.join(work, "idx_full_c3")
+    nb = (N + 1 + 7) // 8
+    t0 = time.perf_counter()
+    idx = Index(full)
+    open_full_s = time.perf_counter() - t0
+    gffs = {"g0": "g0.gff", "g1": "new_g1.gff", "g2": "g2.gff"}
+    fetch_s, ngenes = None, 0
+    for a in ANCHORS:
+        d = os.path.join(full, "anchor", a)
+        bed = read_bed(os.path.join(d, "gene.bed.gz"))
+        got = []
+        for chrom, _, _, _ in idx.genomes[a].chrs:
+            t0 = time.perf_counter()
+            t = idx.query_genes(a, chrom)
+            if fetch_s is None:
+                fetch_s, ngenes = time.perf_counter() - t0, len(t.values)
+            got += [[str(x) for x in r] for r in t.values]
+        if got != bed:
+            raise AssertionError(f"query_genes of {a}: {len(got)} rows, "
+                                 f"gene.bed.gz holds {len(bed)}")
+        check_gene_rows(got, bitmap_popc(d, nb), N + 1, f"query_genes {a}")
+        with open(os.path.join(work, "fa", gffs[a])) as f:
+            types = {line.split("\t")[2] for line in f
+                     if not line.startswith("#")} - {"gene"}
+        anno = idx.query_anno(a, "chr1", 0, GENOME_BP)
+        if set(anno.values[:, 3]) != types:
+            raise AssertionError(f"query_anno of {a}: types "
+                                 f"{set(anno.values[:, 3])}, the GFF {types}")
+    idx.close()
+    print(f"read: query_genes of g0-g2 returns every gene, its counts equal "
+          f"the bitmap's popcounts; query_anno every annotation type",
+          flush=True)
+    print(f"read phase host times [{card}]: open the slice's index "
+          f"{open_s:.4f} s (the annotated tree {open_full_s:.4f} s); a "
+          f"{READ_MBP / 1e6:g}-Mbp step-1 query {mbp_s:.4f} s; a whole "
+          f"{GENOME_BP / 1e6:g}-Mbp chromosome at step 100 {chrom_s:.4f} s; a "
+          f"whole chromosome's gene fetch ({ngenes} genes) {fetch_s:.4f} s",
+          flush=True)
+
+
 # the kernels of each mesh strategy's path: the range strategy's local
 # probe is a row gather at the low-bit bucket (panagram_tpu's _local_probe
 # is an XLA gather), so probe_sorted runs only in the genome strategy
@@ -1067,6 +1239,7 @@ def main():
         launches, seqs, slice_peak = slice_phase(work, card)
         device_dict_phase(work, card)
         full_index_phase(work, seqs, card, dev)
+        read_phase(work, seqs, card)
         mesh_phase(work, card, dev, slice_peak)
     launches["mosaic_probe"] = mosaic_launches
     layout_phase(dev, card)

@@ -1,17 +1,24 @@
 """CLI: python -m panagram_tpu_torch index samples.tsv -k 31 --prefix idx
      python -m panagram_tpu_torch annotate idx genome genes.gff
+     python -m panagram_tpu_torch bitdump idx genome chrom [start end step]
 
-The ``index`` and ``annotate`` subcommands of panagram_tpu's CLI with the
-same flags, run on one device (``--device``, default cuda), or with
-``--mesh N`` on N ranks of one device each; ``--num-processes`` builds from
-several processes (with ``--mesh``: one mesh across them, meeting at
-``--coordinator``; without: coordinated through files).
+The ``index``, ``annotate`` and ``bitdump`` subcommands of panagram_tpu's
+CLI with the same arguments.  ``index`` runs on one device (``--device``,
+default cuda), or with ``--mesh N`` on N ranks of one device each;
+``--num-processes`` builds from several processes (with ``--mesh``: one
+mesh across them, meeting at ``--coordinator``; without: coordinated
+through files).  ``bitdump`` prints bitmap rows of a window, host work
+only: with ``-v`` the genome names and one line of bits per row, else the
+table panagram_tpu prints through pandas (``frame_text``).
 """
 
 from __future__ import annotations
 
 import argparse
+import shutil
 import sys
+
+import numpy as np
 
 
 def _add_index(sub):
@@ -97,7 +104,7 @@ def _run_index(args):
         gff_name=args.gff_name,
     )
     if args.prepare:
-        idx = Index(args.input, prefix=args.prefix, **params)
+        idx = Index(args.input, mode="w", prefix=args.prefix, **params)
         print(f"Prepared index at {idx.prefix}. "
               f"Run 'python -m panagram_tpu_torch index {idx.prefix}' to build.")
         return
@@ -142,8 +149,126 @@ def _run_annotate(args):
     from .pipeline import resolve_device
 
     dev = resolve_device(args.device)
-    Index(args.index_dir).genomes[args.genome].run_annotate(
-        args.gff_file, nogene=args.nogene, device=dev)
+    idx = Index(args.index_dir)
+    try:
+        idx[args.genome].run_annotate(args.gff_file, nogene=args.nogene,
+                                      device=dev)
+    finally:
+        idx.close()
+
+
+def _add_bitdump(sub):
+    p = sub.add_parser("bitdump", help="Query the pan-kmer bitmap")
+    p.add_argument("index_dir")
+    p.add_argument("genome")
+    p.add_argument("chrom")
+    p.add_argument("start", type=int, nargs="?", default=None)
+    p.add_argument("end", type=int, nargs="?", default=None)
+    p.add_argument("step", type=int, nargs="?", default=1)
+    p.add_argument("-v", "--verbose", action="store_true")
+    return p
+
+
+def _run_bitdump(args):
+    from .index import Index
+
+    idx = Index(args.index_dir)
+    try:
+        bits = idx.query_bitmap(args.genome, args.chrom, args.start,
+                                args.end, args.step)
+        if args.verbose:
+            print(" ".join(idx.genomes))
+            # one line of space-separated 0/1 per row
+            text = np.full((len(bits.values), 2 * idx.ngenomes), ord(" "),
+                           np.uint8)
+            text[:, 0::2] = bits.values + ord("0")
+            text[:, -1] = ord("\n")
+            sys.stdout.write(text.tobytes().decode())
+        else:
+            # panagram_tpu's genome columns are named after their
+            # samples.tsv column
+            print(frame_text(bits, columns_name="name"))
+    finally:
+        idx.close()
+
+
+# pandas' display defaults (display.max_rows, display.min_rows,
+# display.max_seq_items)
+MAX_ROWS, MIN_ROWS, MAX_SEQ_ITEMS = 60, 10, 100
+
+
+def frame_text(t, columns_name=None) -> str:
+    """The text ``print(DataFrame)`` gives in a plain Python interpreter for
+    a query_bitmap table (rows labelled by position, one uint8 column per
+    genome; `columns_name` the name of the column labels, printed above the
+    row labels), pandas' defaults in force: more than MAX_ROWS rows show the
+    first and last MIN_ROWS // 2; columns are dropped from the middle until
+    the lines fit the terminal's width (shutil.get_terminal_size: $COLUMNS,
+    the terminal, else 80) and a "..." column stands for them; when
+    anything is dropped the dimensions follow."""
+    values, names = t.values, [str(c) for c in t.columns]
+    nrows, ncols = values.shape
+    width = shutil.get_terminal_size()[0]
+    dims = f"\n\n[{nrows} rows x {ncols} columns]"
+    if nrows == 0 or ncols == 0:
+        def seq(items):
+            items = [str(x) for x in items]
+            if len(items) > MAX_SEQ_ITEMS:
+                items = items[:MAX_SEQ_ITEMS] + ["..."]
+            return "[" + ", ".join(items) + "]"
+        return (f"Empty DataFrame\nColumns: {seq(names)}\n"
+                f"Index: {seq(t.index)}" + (dims if ncols > width else ""))
+    rows = list(range(nrows))
+    row_cut = None
+    if nrows > MAX_ROWS:
+        row_cut = MIN_ROWS // 2
+        rows = rows[:row_cut] + rows[-row_cut:]
+    cols, col_cut = list(range(ncols)), None
+
+    def cut_columns(fitted):
+        nonlocal cols, col_cut
+        if fitted and ncols > fitted:
+            col_cut = fitted // 2
+            cols = cols[:col_cut] + cols[len(cols) - col_cut:]
+
+    def strcols():
+        index = [str(t.index[r]) for r in rows]
+        iw = max(map(len, index))
+        out = [[columns_name or ""] + [s.ljust(iw) for s in index]]
+        for c in cols:
+            head = " " + names[c]
+            w = max(len(head), 2)
+            out.append([head.rjust(w)]
+                       + [f"{v: d}".rjust(w) for v in values[rows, c]])
+        if col_cut is not None:
+            out.insert(col_cut + 1, [" ..."] * (len(rows) + 1))
+        if row_cut is not None:
+            for ix, col in enumerate(out):
+                dot_col = col_cut is not None and ix == col_cut + 1
+                cw = 4 if dot_col else len(col[row_cut])
+                dots = "..." if cw > 3 else ".."
+                col.insert(row_cut + 1,
+                           dots.ljust(cw) if ix == 0 else dots.rjust(cw))
+        return out
+
+    def adjoin(columns):
+        widths = [max(map(len, c)) + 1 for c in columns[:-1]]
+        widths.append(max(map(len, columns[-1])))
+        return "\n".join("".join(s.ljust(w) for s, w in zip(line, widths))
+                         for line in zip(*columns))
+
+    cut_columns(width if ncols > width else 0)
+    sc = strcols()
+    # drop columns from the middle until the lines fit the width
+    lens = [max(map(len, c)) for c in sc]
+    over = len(adjoin(sc).split("\n")[0]) - width + 1
+    while over > 0 and len(lens) > 1:
+        over -= lens.pop(round(len(lens) / 2)) + 1
+    cut_columns(max(len(lens) - 1, 2))
+    text = adjoin(strcols())
+    if row_cut is not None or col_cut is not None:
+        text += dims
+    return text
 
 
 def main(argv=None):
@@ -154,8 +279,10 @@ def main(argv=None):
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_index(sub)
     _add_annotate(sub)
+    _add_bitdump(sub)
     args = parser.parse_args(argv)
-    {"index": _run_index, "annotate": _run_annotate}[args.cmd](args)
+    {"index": _run_index, "annotate": _run_annotate,
+     "bitdump": _run_bitdump}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,19 @@
-"""Build the CUDA kernels (csrc/*.cu) into one shared library at first use.
+"""Build the native libraries into ``_built/`` beside this file at first use.
 
-One ``nvcc`` per source, all started together, compiles each for Hopper
-(``sm_90a``) into an object file; one more links them into
-``_built/libpanagram_kernels.so`` beside this file; ``ops/kernels.py``
-loads it with ctypes.  The library is rebuilt when it is missing or older
-than any source.  An exclusive file lock serialises concurrent first uses
-(test workers, several processes of one build), and the library appears
-under its final name only once complete.  A failed ``nvcc`` raises with its
+CUDA kernels (``build``): one ``nvcc`` per source of csrc/*.cu, all
+started together, compiles each for Hopper (``sm_90a``) into an object
+file; one more links them into ``_built/libpanagram_kernels.so``;
+``ops/kernels.py`` loads it with ctypes.  A failed ``nvcc`` raises with its
 output.
+
+Host C++ (``build_host_library``): one ``g++`` call per library, e.g. the
+BGZF compressor of native/bgzf_native.cpp; a missing compiler or a failed
+compile raises naming why, and the caller decides how to go on.
+
+A library is rebuilt when it is missing or older than its sources.  An
+exclusive file lock serialises concurrent first uses (test workers, several
+processes of one build), and a library appears under its final name only
+once complete.
 """
 
 from __future__ import annotations
@@ -104,3 +110,41 @@ def build(force: bool = False) -> float:
                                + "".join(log))
         os.replace(tmp, LIB_PATH)
         return seconds
+
+
+HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-Wall"]
+
+
+def build_host_library(source: str, name: str, libs=()) -> str:
+    """Compile one C++ source with the host's g++ into _built/<name> (link
+    flags `libs`, e.g. ["-lz"]) unless the library is newer than the
+    source; returns its path.  Raises RuntimeError naming why when g++ is
+    missing or fails (its first error line, e.g. a missing header)."""
+    import fcntl
+
+    lib = os.path.join(BUILD_DIR, name)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".host.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.getmtime(lib) >= os.path.getmtime(source):
+                return lib
+        except OSError:
+            pass
+        cxx = shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError("no host C++ compiler: g++ is not on PATH")
+        tmp = f"{lib}.tmp.{os.getpid()}"
+        res = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp, source, *libs],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             timeout=300)
+        if res.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            out = res.stdout.decode("utf-8", "replace").splitlines()
+            err = next((line for line in out if "error" in line),
+                       out[-1] if out else f"exit code {res.returncode}")
+            raise RuntimeError(f"g++ failed on {os.path.basename(source)}: "
+                               f"{err.strip()}")
+        os.replace(tmp, lib)
+    return lib

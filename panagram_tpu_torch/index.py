@@ -1,4 +1,4 @@
-"""The pan-kmer index, write path: samples, config, anchoring, annotation.
+"""The pan-kmer index: samples, config, anchoring, annotation, and reading.
 
 Writes the on-disk index of ``panagram_tpu.index`` for the same readers:
 
@@ -15,19 +15,26 @@ Writes the on-disk index of ``panagram_tpu.index`` for the same readers:
 The tables are formatted with the csv module or plain string formatting,
 byte-identical to what panagram_tpu writes through pandas (the embeddings'
 coordinates to floating-point rounding; anno_types.txt lists a set, in
-hash order).  The read path is what the write path needs: ``query`` reads
-bitmap rows back for the embeddings and for ``annotate``; the viewer and
-the other readers stay with panagram_tpu.index, which opens this package's
-output.
+hash order).
+
+Read mode (``Index(index_dir)``) is panagram_tpu's read API without
+pandas: ``query_bitmap``, ``query_genes``, ``query_anno``, the per-genome
+and index-wide occupancy summaries and the bin transforms.  Each table is a
+``Table``: a numpy array with its row and column labels, holding the values
+and labels of the DataFrame or Series panagram_tpu returns under the same
+name.
 """
 
 from __future__ import annotations
 
 import csv
+import dataclasses
 import logging
 import os
 import re
+import threading
 import time
+from typing import Sequence
 
 import numpy as np
 
@@ -35,13 +42,15 @@ from .config import IndexConfig, config_path, samples_path
 from .io.bgzf import BgzfReader, BgzfWriter
 from .io.fasta import FastaFile, iter_fasta, seq_to_codes
 from .io.gff import split_gff
-from .io.tabix import write_tabix
+from .io.tabix import TabixFile, write_tabix
 
 logger = logging.getLogger(__name__)
 
 NAME_REGEX = "[A-Za-z0-9_-]+"
 ANCHOR_DIR = "anchor"
 FASTQ_EXTS = (".fastq", ".fastq.gz", ".fq", ".fq.gz")
+TABIX_COLS = ["chr", "start", "end", "type", "name"]
+GENE_COLS = ["chr", "start", "end", "name"]
 
 # positions per streamed anchor chunk (upper end of the pow2 ladder);
 # panagram_tpu's knob of the same name sets it for runs and tests that need
@@ -132,19 +141,115 @@ def bitmap_to_paircount_bins(positions, presence, binlen: int):
     return starts, np.where(np.isnan(scaled), 0.0, scaled)
 
 
-class Index:
-    """Write handle on an index directory.
+@dataclasses.dataclass
+class Table:
+    """A labelled table, the read API's stand-in for a pandas DataFrame or
+    Series: `values` (a DataFrame's ``to_numpy()``: [rows, columns], an
+    object array where the columns mix types; a Series' values: [rows]),
+    `index` (one label per row, a tuple where the DataFrame has a
+    MultiIndex) and `columns` (the column labels; None for a Series)."""
 
-    Index(samples_tsv, prefix=..., **params) -> initializes config.yaml and
-                                                samples.tsv
-    Index(index_dir)                         -> resumes an initialized dir
+    values: np.ndarray
+    index: Sequence
+    columns: list | None = None
+
+
+def _frequencies(t: Table) -> Table:
+    """Each row divided by its sum (0 / 0 -> NaN): panagram_tpu's
+    ``df.divide(df.sum(axis=1), axis=0)``."""
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return Table(t.values / t.values.sum(axis=1, keepdims=True), t.index,
+                     t.columns)
+
+
+def _mean_occupancy(freqs: Table) -> Table:
+    """Per row the sum over occupancy of occupancy x frequency (NaN
+    frequencies count 0), ascending: a Series of panagram_tpu.  The sum
+    runs over a column-major array, the layout of a pandas frame's values,
+    so that it adds in panagram_tpu's order and gives its last bits."""
+    vals = np.nansum(np.asfortranarray(freqs.values)
+                     * np.asarray(freqs.columns), axis=1)
+    order = np.argsort(vals, kind="stable")
+    return Table(vals[order], [freqs.index[i] for i in order])
+
+
+def _stack(tables: list, keys: list, columns: list) -> Table:
+    """Tables with these columns one under another, each row label
+    prefixed with its table's key: ``pd.concat(tables, keys=keys)``."""
+    return Table(np.concatenate([t.values for t in tables]
+                                or [np.zeros((0, len(columns)))]),
+                 [(k,) + (i if isinstance(i, tuple) else (i,))
+                  for k, t in zip(keys, tables) for i in t.index],
+                 columns)
+
+
+def _column(fields) -> list:
+    """A CSV column typed as pandas.read_csv types it: int, else float
+    (empty fields NaN), else str."""
+    try:
+        return [int(x) for x in fields]
+    except ValueError:
+        pass
+    try:
+        return [float(x) if x else float("nan") for x in fields]
+    except ValueError:
+        return list(fields)
+
+
+def _values(cols: list, nrows: int) -> np.ndarray:
+    """Columns as one [rows, columns] array, as DataFrame.to_numpy() gives
+    it: int64 when every value is an int, float64 when every value is a
+    number, else (and without rows) an object array."""
+    out = np.empty((nrows, len(cols)), object)
+    for j, c in enumerate(cols):
+        out[:, j] = c
+    kinds = {type(x) for c in cols for x in c}
+    if not nrows:
+        return out
+    if kinds <= {int}:
+        return out.astype(np.int64)
+    if kinds <= {int, float}:
+        return out.astype(np.float64)
+    return out
+
+
+def _read_table(path: str, sep=",", index_col=None) -> Table:
+    """A CSV or TSV file as pandas.read_csv(path, sep=sep,
+    index_col=index_col) reads it: each column typed by _column, the rows
+    labelled by the index column or 0..n-1."""
+    with open(path, newline="") as f:
+        header, *rows = list(csv.reader(f, delimiter=sep))
+    cols = [_column(c) for c in zip(*rows)] if rows else [[] for _ in header]
+    if index_col is None:
+        index = np.arange(len(rows))
+    else:
+        i = header.index(index_col)
+        index = cols.pop(i)
+        header = header[:i] + header[i + 1:]
+    return Table(_values(cols, len(rows)), index, header)
+
+
+class Index:
+    """Handle on an index directory, as panagram_tpu.index.Index.
+
+    Index(samples_tsv, prefix=..., **params) -> write mode: initializes
+                                                config.yaml and samples.tsv
+    Index(index_dir, mode="w")               -> write mode: resumes an
+                                                initialized dir
+    Index(index_dir)                         -> read mode
     """
 
-    def __init__(self, input, prefix=None, **params):
+    def __init__(self, input, mode=None, prefix=None, **params):
         self.conf = IndexConfig()
+        self.write_mode = os.path.isfile(input) if mode is None else mode == "w"
         # a mesh build's per-rank reports (pipeline.build_index)
         self.mesh_ranks = None
-        if os.path.isdir(input):
+        if not self.write_mode:
+            if not os.path.isdir(input):
+                raise ValueError("Index input must be directory in mode='r'")
+            self.prefix = input
+            self.conf = IndexConfig.load(config_path(input))
+        elif os.path.isdir(input):
             self.prefix = input
             if not (os.path.isfile(config_path(input))
                     and os.path.isfile(samples_path(input))):
@@ -167,7 +272,51 @@ class Index:
             self.genomes[row["name"]] = Genome(
                 self, row["name"], _field(row.get("fasta")),
                 _field(row.get("gff")),
-                None if anchor is None else anchor == "True")
+                None if anchor is None else anchor == "True",
+                write=self.write_mode)
+        self.chrs = None
+        if not self.write_mode:
+            self._init_read()
+
+    def _init_read(self):
+        """The anchored genomes' summaries stacked into index-wide tables
+        (panagram_tpu's Index._init_read): chrs, bitsum_bins (sorted by
+        genome, chr, start), bitsum_chrs and bitfreq_chrs (per genome,
+        chromosomes by name), bitsum_totals and bitfreq_totals (one row per
+        anchor), bitsum_totals_avg and bitsum_chrs_avg (mean occupancy,
+        ascending) and genome_sizes (length and chr_count per genome, by
+        name)."""
+        loaded = [(n, self.genomes[n]) for n in self.anchor_genomes
+                  if self.genomes[n].chrs is not None]
+        names = [n for n, _ in loaded]
+        self.chrs = Table(
+            np.array([c[1:] for _, g in loaded for c in g.chrs],
+                     np.int64).reshape(-1, 3),
+            [(n, c[0]) for n, g in loaded for c in g.chrs],
+            ["id", "size", "gene_count"])
+        occ = self.bitsum_index
+        bins = _stack([g.bitsum_bins for _, g in loaded], names, occ)
+        order = sorted(range(len(bins.index)), key=bins.index.__getitem__)
+        self.bitsum_bins = Table(bins.values[order],
+                                 [bins.index[i] for i in order], occ)
+        self.bitsum_chrs = _stack([g.bitsum_chrs for _, g in loaded], names,
+                                  occ)
+        self.bitfreq_chrs = _stack([g.bitfreq_chrs for _, g in loaded],
+                                   names, occ)
+        self.bitsum_totals = Table(
+            np.array([g.bitsum_total.values for _, g in loaded],
+                     np.int64).reshape(len(names), len(occ)), names, occ)
+        self.bitfreq_totals = _frequencies(self.bitsum_totals)
+        self.bitsum_totals_avg = _mean_occupancy(self.bitfreq_totals)
+        self.bitsum_chrs_avg = _mean_occupancy(self.bitfreq_chrs)
+        sizes: dict[str, list[int]] = {}
+        for (n, _), size in zip(self.chrs.index, self.chrs.values[:, 1]):
+            sizes.setdefault(n, []).append(int(size))
+        gs = sorted(sizes)
+        self.genome_sizes = Table(
+            np.array([[sum(sizes[n]), len(sizes[n])] for n in gs],
+                     np.int64).reshape(-1, 2),
+            gs, ["length", "chr_count"])
 
     def init_config(self, samples_tsv):
         with open(samples_tsv, newline="") as f:
@@ -251,11 +400,68 @@ class Index:
     def dict_fname(self):
         return os.path.join(self.kmer_dir, "pandict.npz")
 
+    @property
+    def bitsum_index(self) -> list[int]:
+        """Occupancy values 0..N: the columns of the histograms."""
+        return list(range(self.ngenomes + 1))
+
+    # ---------------- read API (panagram_tpu.index.Index's) ----------------
+
+    def __getitem__(self, genome):
+        return self.genomes[genome]
+
+    def query_bitmap(self, genome, chrom, start=None, end=None, step=1):
+        return self.genomes[genome].query(chrom, start, end, step)
+
+    def query_genes(self, genome, chrom=None, start=None, end=None):
+        return self.genomes[genome].query_genes(chrom, start, end)
+
+    def query_anno(self, genome, chrom, start, end):
+        return self.genomes[genome].query_anno(chrom, start, end)
+
+    def bitsum_count(self, occs) -> np.ndarray:
+        """How many of `occs` hold each occupancy 1..N, uint32 [N] (an
+        occupancy 0 lands in the last slot, as in panagram_tpu)."""
+        ret = np.zeros(self.ngenomes, "uint32")
+        occs, counts = np.unique(occs, return_counts=True)
+        ret[occs - 1] = counts
+        return ret
+
+    def bitmap_to_bins(self, bitmap: Table, binlen: int):
+        """(pancount_bins: occupancy histograms [N+1, bins], columns the
+        bin ids; paircount_bins: per-genome totals scaled by each bin's
+        largest [N, bins], columns the bin starts) of a query_bitmap
+        table."""
+        starts, occ, scaled = bitmap_to_bins(bitmap.index, bitmap.values,
+                                             binlen)
+        return (Table(occ, self.bitsum_index, list(starts // binlen)),
+                Table(scaled.T, list(bitmap.columns), list(starts)))
+
+    def bitmap_to_pancount(self, bitmap: Table) -> Table:
+        """Genomes present per row of a query_bitmap table (uint64, numpy's
+        sum of uint8, as panagram_tpu's)."""
+        return Table(bitmap.values.sum(axis=1), bitmap.index)
+
+    def pancount_to_bins(self, pancnts: Table, binlen: int) -> Table:
+        """Occupancy histograms [N+1, bins] of a bitmap_to_pancount table,
+        columns the bin ids."""
+        bins, slots = np.unique(np.asarray(pancnts.index) // binlen,
+                                return_inverse=True)
+        occ = np.bincount(np.asarray(pancnts.values, np.int64) * len(bins)
+                          + slots, minlength=(self.ngenomes + 1) * len(bins))
+        return Table(occ.reshape(self.ngenomes + 1, len(bins)),
+                     self.bitsum_index, list(bins))
+
+    def close(self):
+        for g in self.genomes.values():
+            g.close()
+
 
 class Genome:
     """One genome of the index; anchored genomes own an anchor/<name>/ dir."""
 
-    def __init__(self, idx, name, fasta=None, gff=None, anchor=None):
+    def __init__(self, idx, name, fasta=None, gff=None, anchor=None,
+                 write=True):
         self.index = idx
         self.name = name
         self.fasta = fasta
@@ -269,12 +475,19 @@ class Genome:
         self.nbytes = (self.ngenomes + 7) // 8
         self.steps = list(idx.steps)
         self.chrs = None       # [name, id, size, gene_count] per record
+        self.bitmaps = None    # step -> BgzfReader, opened by _open_bitmaps
+        self.gene_tabix = self.anno_tabix = None
         if not self.anchored:
             return
         if os.path.exists(self.chrs_fname):
             self.load_chrs()
         elif self.fasta is not None and os.path.exists(self._fasta_path):
             self.init_chrs()
+        if not write:
+            if self.chrs is not None and os.path.exists(self.bitmap_gz_fname(1)):
+                self.init_read()
+            else:
+                self.chrs = None
 
     @property
     def _fasta_path(self):
@@ -403,13 +616,21 @@ class Genome:
         if self.chrs is None:
             self.init_chrs()
         chunk = self._anchor_chunk()
+        # host seconds per phase of the stage, logged at its end: encode
+        # (FASTA codes), pack (2-bit packing, one-device path), wait (the
+        # rest of each chunk's request: the enqueue and the wait for the
+        # card, or the mesh's collectives), copy (the copy-back, a part of
+        # wait: the card's time on CUDA), write (BGZF), bins, finish (the
+        # embeddings)
+        phase = {"encode": 0.0, "pack": 0.0, "wait": 0.0, "copy": 0.0,
+                 "write": 0.0, "bins": 0.0}
         pieces = False
         if mesh is None:
             from .ops.anchor import stream_anchor_chunks
 
             def chunks(codes, nkmers):
                 return stream_anchor_chunks(codes, nkmers, chunk, bucketed,
-                                            nbytes, N, k)
+                                            nbytes, N, k, phase)
         else:
             from .parallel.mesh import barrier, sharded_writes_enabled
             from .parallel.shard import ShardedBucketedDict, stream_mesh_chunks
@@ -453,7 +674,7 @@ class Genome:
         # rows (step 1) and low-resolution rows of the chromosomes before
         # this one: where a piece goes in the whole bitmap
         base1 = base_low = 0
-        phase = {"encode": 0.0, "drain": 0.0, "write": 0.0, "bins": 0.0}
+        drain = 0.0
         logger.info("Anchoring Started")
         try:
             for chrom_i, (chrom, seq) in enumerate(iter_fasta(self._fasta_path)):
@@ -473,7 +694,7 @@ class Genome:
                 while True:
                     t0 = time.perf_counter()
                     item = next(it, None)
-                    phase["drain"] += time.perf_counter() - t0
+                    drain += time.perf_counter() - t0
                     if item is None:
                         break
                     start, m, by, popc, chunk_colsums = item
@@ -514,6 +735,7 @@ class Genome:
         finally:
             for w in writers.values():
                 w.close()
+        phase["wait"] = drain - phase["pack"]
         if pieces:
             # every process's pieces are complete before process 0 stitches
             barrier(mesh)
@@ -548,6 +770,7 @@ class Genome:
                 f"{name}={v:.3f}s" for name, v in phase.items()))
             return
         t0 = time.perf_counter()
+        self.close()    # readers of an earlier bitmap, if any
         try:
             self.write_umaps()
         except Exception as e:  # the embeddings are ancillary, as upstream
@@ -658,26 +881,123 @@ class Genome:
                                  st)
         self._write_genes(genes)
 
-    # ---------------- read path ----------------
+    # ---------------- read path (panagram_tpu's read mode) ----------------
+
+    @property
+    def gene_tabix_cols(self) -> list:
+        return GENE_COLS + [1, self.ngenomes]
+
+    def init_read(self):
+        """Open the bitmaps and the tabix files and load the summaries, as
+        panagram_tpu's Genome.init_read: bitsum_bins (rows (chr, start),
+        columns the occupancies 0..N), bitsum_chrs (per chromosome, by
+        name), bitsum_total (a Series over 0..N), their frequency forms
+        bitfreq_bins and bitfreq_chrs; gene_tabix and anno_tabix (TabixFile
+        or None) and annotated; gff_anno_types and anno_type_ids (a dict
+        for panagram_tpu's Series); bitsum_genes and bitfreq_genes (zeros
+        over the chromosomes and gene_tabix_cols when not annotated);
+        total_paircounts; chrom_umaps and genome_umap."""
+        self._open_bitmaps()
+        t = _read_table(self.bins_fname, "\t")
+        names = [c[0] for c in self.chrs]
+        self.bitsum_bins = Table(
+            np.ascontiguousarray(t.values[:, 2:]),
+            [(names[c], s) for c, s in t.values[:, :2].tolist()],
+            [int(c) for c in t.columns[2:]])
+        chrom = sorted({c for c, _ in self.bitsum_bins.index})
+        slot = {c: i for i, c in enumerate(chrom)}
+        sums = np.zeros((len(chrom), len(self.bitsum_bins.columns)), np.int64)
+        np.add.at(sums, [slot[c] for c, _ in self.bitsum_bins.index],
+                  self.bitsum_bins.values)
+        self.bitsum_chrs = Table(sums, chrom, self.bitsum_bins.columns)
+        self.bitsum_total = Table(self.bitsum_bins.values.sum(axis=0),
+                                  self.bitsum_bins.columns)
+        self.bitfreq_bins = _frequencies(self.bitsum_bins)
+        self.bitfreq_chrs = _frequencies(self.bitsum_chrs)
+
+        self.gene_tabix = self._load_tabix("gene")
+        self.anno_tabix = self._load_tabix("anno")
+        self.annotated = self.gene_tabix is not None \
+            or self.anno_tabix is not None
+        self._init_anno_types()
+        if self.annotated and os.path.exists(self.chr_genes_fname):
+            t = _read_table(self.chr_genes_fname, "\t", "chr")
+            self.bitsum_genes = Table(t.values, t.index,
+                                      [int(c) for c in t.columns])
+            self.bitfreq_genes = _frequencies(self.bitsum_genes)
+        else:
+            self.bitsum_genes = self.bitfreq_genes = Table(
+                np.zeros((len(self.chrs), len(self.gene_tabix_cols)),
+                         np.int64), names, self.gene_tabix_cols)
+        self.total_paircounts = (
+            _read_table(self.paircounts_fname, ",", "name")
+            if os.path.exists(self.paircounts_fname) else None)
+        self.load_umaps()
+
+    def _open_bitmaps(self):
+        """One reader per stored step, and each chromosome's size and first
+        row per step (panagram_tpu's bitmaps, sizes and offsets).  Queries
+        take _query_lock: a reader keeps a position, and queries may come
+        from several threads."""
+        self.sizes = {c[0]: c[2] for c in self.chrs}
+        self.offsets = {}
+        for step in self.steps:
+            base, first = 0, {}
+            for name, _, size, _ in self.chrs:
+                first[name] = base
+                base += -(-size // step)
+            self.offsets[step] = first
+        self._query_lock = threading.Lock()
+        self.bitmaps = {s: BgzfReader(self.bitmap_gz_fname(s),
+                                      self.bitmap_gzi_fname(s))
+                        for s in self.steps}
+
+    def _init_anno_types(self):
+        """gff_anno_types (a set) and anno_type_ids (type -> id, "exon"
+        first with id 0 when present, else ids from 1) from
+        anno_types.txt; both None without it."""
+        self.gff_anno_types = self.anno_type_ids = None
+        if not os.path.exists(self.anno_types_fname):
+            return
+        with open(self.anno_types_fname) as f:
+            types = [t.strip() for t in f if t.strip()]
+        id0 = 1
+        if "exon" in types:
+            types = ["exon"] + [t for t in types if t != "exon"]
+            id0 = 0
+        self.gff_anno_types = set(types)
+        self.anno_type_ids = {t: id0 + i for i, t in enumerate(types)}
+
+    def _load_tabix(self, typ):
+        fname = self.tabix_fname(typ)
+        if not os.path.exists(fname):
+            return None
+        return TabixFile(fname, self.tabix_idx_fname(typ))
+
+    def load_umaps(self):
+        """chrom_umaps (rows by chrom) and genome_umap, or None."""
+        self.chrom_umaps = (
+            _read_table(self.chrom_umaps_filename, ",", "chrom")
+            if os.path.exists(self.chrom_umaps_filename) else None)
+        self.genome_umap = (_read_table(self.genome_umap_filename)
+                            if os.path.exists(self.genome_umap_filename)
+                            else None)
 
     def query_rows(self, name, start=None, end=None, step=1):
         """Bitmap rows of chromosome `name` over [start, end) at `step`:
         (positions, uint8 [rows, nbytes]).  Rows come from the coarsest
         stored resolution whose step divides `step`, thinned to it; the
         semantics of panagram_tpu.index.Genome.query."""
-        size = {c[0]: c[2] for c in self.chrs}[name]
+        if self.bitmaps is None:
+            self._open_bitmaps()
         start = 0 if start is None else start
-        end = size if end is None else end
+        end = self.sizes[name] if end is None else end
         stored = max((s for s in self.steps if step % s == 0), default=1)
-        row_base = start // stored
-        for cname, _, csize, _ in self.chrs:
-            if cname == name:
-                break
-            row_base += -(-csize // stored)
+        row_base = self.offsets[stored][name] + start // stored
         n_rows = (end - 1 - start) // stored + 1
-        with BgzfReader(self.bitmap_gz_fname(stored),
-                        self.bitmap_gzi_fname(stored)) as r:
-            raw = r.read_at(row_base * self.nbytes, n_rows * self.nbytes)
+        with self._query_lock:
+            raw = self.bitmaps[stored].read_at(row_base * self.nbytes,
+                                               n_rows * self.nbytes)
         mat = np.frombuffer(raw, np.uint8).reshape(-1, self.nbytes)
         thin = step // stored
         if thin > 1:
@@ -685,11 +1005,59 @@ class Genome:
         positions = np.arange(start, end, step)
         return positions, mat[:len(positions)]
 
-    def query(self, name, start=None, end=None, step=1):
-        """(positions, presence bits uint8 [rows, N]) of query_rows."""
+    def query(self, name, start=None, end=None, step=1) -> Table:
+        """Presence bits of chromosome `name` over [start, end) at `step`:
+        uint8 [rows, N], the rows labelled by position, the columns by
+        genome (panagram_tpu's Genome.query)."""
         positions, rows = self.query_rows(name, start, end, step)
         bits = np.unpackbits(rows, axis=1, bitorder="little")
-        return positions, bits[:, :self.ngenomes]
+        return Table(bits[:, :self.ngenomes], positions,
+                     self.index.genome_names)
+
+    def query_genes(self, chrom=None, start=None, end=None) -> Table:
+        """Genes overlapping [start, end) of `chrom` (every gene without
+        `chrom`): columns chr, start, end, name and the genes' counts of
+        positions present in 1 and in N genomes (ints); no rows when the
+        genome has no genes or `chrom` is unknown."""
+        rows = []
+        if self.gene_tabix is not None:
+            try:
+                rows = list(self.gene_tabix.fetch(chrom, start, end))
+            except ValueError:
+                rows = []
+        vals = np.empty((len(rows), len(self.gene_tabix_cols)), object)
+        for i, (c, s, e, name, one, alln) in enumerate(rows):
+            vals[i] = [c, int(s), int(e), name, int(one), int(alln)]
+        return Table(vals, np.arange(len(rows)), self.gene_tabix_cols)
+
+    def query_anno(self, chrom, start, end) -> Table:
+        """Annotations overlapping [start, end) of `chrom`: columns
+        TABIX_COLS and type_id (the type's anno_type_ids entry, NaN where
+        it has none); only TABIX_COLS when the genome has no annotation
+        table."""
+        if self.anno_tabix is None:
+            return Table(np.empty((0, len(TABIX_COLS)), object),
+                         np.arange(0), TABIX_COLS)
+        try:
+            rows = list(self.anno_tabix.fetch(chrom, start, end))
+        except ValueError:
+            rows = []
+        ids = self.anno_type_ids or {}
+        vals = np.empty((len(rows), len(TABIX_COLS) + 1), object)
+        for i, (c, s, e, typ, name) in enumerate(rows):
+            vals[i] = [c, int(s), int(e), typ, name,
+                       ids.get(typ, float("nan"))]
+        return Table(vals, np.arange(len(rows)), TABIX_COLS + ["type_id"])
+
+    def close(self):
+        """Close the bitmap readers (reopened by the next query) and the
+        tabix files."""
+        for r in (self.bitmaps or {}).values():
+            r.close()
+        self.bitmaps = None
+        for t in (self.gene_tabix, self.anno_tabix):
+            if t is not None:
+                t.close()
 
     def write_umaps(self):
         """chrom_umaps.csv (each chromosome's bins of chrom_umap.bin_size
@@ -703,12 +1071,12 @@ class Genome:
         chrom_rows = []
         genome = ([], [], [])
         for name, _, _, _ in self.chrs:
-            positions, bits = self.query(name, step=self.index.lowres_step)
-            starts, pc = bitmap_to_paircount_bins(positions, bits,
+            bits = self.query(name, step=self.index.lowres_step)
+            starts, pc = bitmap_to_paircount_bins(bits.index, bits.values,
                                                   conf.chrom_umap.bin_size)
             chrom_rows += run_embedding([name] * len(starts), starts, pc,
                                         conf.chrom_umap, self.name)
-            starts, pc = bitmap_to_paircount_bins(positions, bits,
+            starts, pc = bitmap_to_paircount_bins(bits.index, bits.values,
                                                   conf.genome_umap.bin_size)
             genome[0].extend([name] * len(starts))
             genome[1].append(starts)

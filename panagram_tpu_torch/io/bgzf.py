@@ -1,4 +1,4 @@
-"""BGZF (block-gzip) writer with .gzi index, and a reader.
+"""BGZF (block-gzip) writer with .gzi index, and a random-access reader.
 
 The on-disk format of ``panagram_tpu.io.bgzf``, which the reference tool's
 readers consume:
@@ -13,8 +13,11 @@ readers consume:
 ``BgzfPieceWriter`` and ``stitch_bgzf_pieces`` write one file from several
 processes (panagram_tpu's multi-host bitmap writes).
 
-Blocks are compressed with zlib at level 6 as raw deflate (wbits -15), the
-settings of panagram_tpu's writer, so the same input gives the same bytes.
+Blocks are deflated at level 6 as raw deflate (wbits -15), the settings of
+panagram_tpu's writer, so the same input gives the same bytes: by the
+native compressor (native/bgzf_native.cpp, built at first use), or by
+Python's zlib where it cannot be built (the reason is printed once on
+stderr).  The reader inflates through the same library.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ EOF_MARKER = bytes.fromhex(
 
 _HEADER = struct.Struct("<4BI2BH2BHH")  # gzip header + XLEN + BC subfield
 
-# blocks written per pool round once a write spans at least this many
+# a write of at least this many whole blocks is compressed on the pool
 _MT_MIN_BLOCKS = 8
 
 
@@ -47,6 +50,18 @@ def make_virtual_offset(block_start_offset: int,
     if within_block_offset >= 65536:
         raise ValueError("within_block_offset must be < 65536")
     return (block_start_offset << 16) | within_block_offset
+
+
+def split_virtual_offset(voffset: int) -> tuple[int, int]:
+    """(block file offset, offset within its uncompressed data)."""
+    return voffset >> 16, voffset & 0xFFFF
+
+
+def _native():
+    """native.bgzf_native when its library loads, else None."""
+    from ..native import bgzf_native
+
+    return bgzf_native if bgzf_native.load() is not None else None
 
 
 def _block_header(bsize: int) -> bytes:
@@ -61,8 +76,9 @@ def _block_header(bsize: int) -> bytes:
     )
 
 
-def compress_block(data: bytes, level: int = 6) -> bytes:
-    """One BGZF block; a payload that would not fit 64 KiB is stored."""
+def compress_block(data, level: int = 6) -> bytes:
+    """One BGZF block by Python's zlib; a payload that would not fit 64 KiB
+    is stored.  The native compressor gives the same bytes."""
     co = zlib.compressobj(level, zlib.DEFLATED, -15)
     payload = co.compress(data) + co.flush()
     bsize = len(payload) + 26
@@ -78,11 +94,15 @@ class BgzfWriter:
     """Streaming BGZF writer that also records the .gzi block table.
 
     ``write()`` accepts bytes or any buffer (e.g. a uint8 ndarray); blocks
-    are cut at MAX_BLOCK_DATA.  Large writes compress their blocks on a
-    small thread pool (zlib releases the GIL; order is kept, so the bytes
-    equal the serial path's).  ``close()`` appends the EOF marker and shuts
-    the pool down.  ``write_gzi(path)`` dumps the index: an entry for the
-    start of every block after the first, the last one at end-of-data."""
+    are cut at MAX_BLOCK_DATA of the stream, whatever the writes' sizes.
+    The whole blocks a write completes are compressed straight from its
+    buffer, in one call of the native compressor per run of blocks; a write
+    of _MT_MIN_BLOCKS blocks or more is cut into one run per thread of a
+    small pool (the compressor releases the interpreter lock; order is
+    kept, so the bytes equal the serial path's).  ``close()`` appends the
+    EOF marker and shuts the pool down.  ``write_gzi(path)`` dumps the
+    index: an entry for the start of every block after the first, the last
+    one at end-of-data."""
 
     def __init__(self, path, level: int = 6):
         self._fh = open(path, "wb")
@@ -91,46 +111,65 @@ class BgzfWriter:
         self._coffset = 0
         self._uoffset = 0
         self._blocks: list[tuple[int, int]] = []
+        self._native = _native()
         self._pool: ThreadPoolExecutor | None = None
         self._closed = False
 
     def write(self, data) -> int:
-        if not isinstance(data, (bytes, bytearray)):
-            data = memoryview(data)
-            if not data.c_contiguous:
-                data = data.tobytes()
-        n = data.nbytes if isinstance(data, memoryview) else len(data)
-        self._buf += data
-        nblocks = len(self._buf) // MAX_BLOCK_DATA
-        if nblocks >= _MT_MIN_BLOCKS:
-            if self._pool is None:
-                self._pool = ThreadPoolExecutor(
-                    max_workers=min(4, os.cpu_count() or 1),
-                    thread_name_prefix="bgzf")
-            span = nblocks * MAX_BLOCK_DATA
-            raw = bytes(self._buf[:span])
-            del self._buf[:span]
-            chunks = [raw[i * MAX_BLOCK_DATA:(i + 1) * MAX_BLOCK_DATA]
-                      for i in range(nblocks)]
-            for block in self._pool.map(
-                    lambda c: compress_block(c, self.level), chunks):
-                self._emit(block, MAX_BLOCK_DATA)
-        while len(self._buf) >= MAX_BLOCK_DATA:
-            self._emit(compress_block(bytes(self._buf[:MAX_BLOCK_DATA]),
-                                      self.level), MAX_BLOCK_DATA)
-            del self._buf[:MAX_BLOCK_DATA]
+        mv = memoryview(data)
+        if not mv.c_contiguous:
+            mv = memoryview(mv.tobytes())
+        mv = mv.cast("B")
+        n = mv.nbytes
+        pos = 0
+        if self._buf:
+            pos = min(n, MAX_BLOCK_DATA - len(self._buf))
+            self._buf += mv[:pos]
+            if len(self._buf) < MAX_BLOCK_DATA:
+                return n
+            self._write_blocks(bytes(self._buf))
+            self._buf.clear()
+        whole = (n - pos) // MAX_BLOCK_DATA * MAX_BLOCK_DATA
+        if whole:
+            self._write_blocks(mv[pos:pos + whole])
+        self._buf += mv[pos + whole:]
         return n
 
-    def _emit(self, block: bytes, ulen: int):
-        self._fh.write(block)
-        self._coffset += len(block)
-        self._uoffset += ulen
-        self._blocks.append((self._coffset, self._uoffset))
+    def _compress(self, raw) -> tuple[bytes, list]:
+        """The blocks of `raw` (cut every MAX_BLOCK_DATA bytes) back to
+        back, and each one's compressed size."""
+        if self._native is not None:
+            return self._native.compress_buffer(raw, self.level)
+        blocks = [compress_block(raw[i:i + MAX_BLOCK_DATA], self.level)
+                  for i in range(0, len(raw), MAX_BLOCK_DATA)]
+        return b"".join(blocks), [len(b) for b in blocks]
+
+    def _write_blocks(self, raw):
+        """Compress and write `raw`: whole blocks, the last one possibly
+        short (a flush)."""
+        nblocks = -(-len(raw) // MAX_BLOCK_DATA)
+        if nblocks >= _MT_MIN_BLOCKS:
+            workers = min(4, os.cpu_count() or 1)
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(max_workers=workers,
+                                                thread_name_prefix="bgzf")
+            per = -(-nblocks // workers) * MAX_BLOCK_DATA
+            runs = self._pool.map(self._compress, [
+                raw[i:i + per] for i in range(0, len(raw), per)])
+        else:
+            runs = [self._compress(raw)]
+        left = len(raw)
+        for out, sizes in runs:
+            self._fh.write(out)
+            for size in sizes:
+                self._coffset += int(size)
+                self._uoffset += min(left, MAX_BLOCK_DATA)
+                left -= MAX_BLOCK_DATA
+                self._blocks.append((self._coffset, self._uoffset))
 
     def flush(self):
         if self._buf:
-            self._emit(compress_block(bytes(self._buf), self.level),
-                       len(self._buf))
+            self._write_blocks(bytes(self._buf))
             self._buf.clear()
 
     def write_gzi(self, path: str):
@@ -280,45 +319,93 @@ def _read_header(fh, coffset: int):
 
 
 class BgzfReader:
-    """Random-access BGZF reader: ``read_at(uoffset, n)`` through a .gzi,
-    or ``read_all()``."""
+    """Random-access BGZF reader with a one-block cache: ``seek(virtual
+    offset)`` then ``read(n)`` (the access of panagram_tpu's and htslib's
+    readers), ``read_to(virtual offset)`` (a CSI chunk's end), ``read_at(
+    uoffset, n)`` through a .gzi, or ``read_all()``.  Reading moves a
+    position, so one reader serves one thread at a time."""
 
     def __init__(self, path: str, gzi: str | None = None):
         self._fh = open(path, "rb")
         self.blocks = load_gzi(gzi) if gzi else None
+        self._native = _native()
+        self._cache_start = -1     # file offset of the cached block
+        self._cache = b""          # its uncompressed data
+        self._next = None          # file offset of the block after it
+        self._within = 0           # read position inside the cached block
 
-    def _block(self, coffset: int):
-        """(data, next coffset) of the block at coffset; b'' at EOF."""
+    def _load_block(self, coffset: int) -> bytes:
+        """The uncompressed data of the block at file offset `coffset`
+        (b'' at the end of the file), made the cached block."""
+        if coffset == self._cache_start:
+            return self._cache
         hdr = _read_header(self._fh, coffset)
         if hdr is None:
-            return b"", coffset
-        bsize, xlen = hdr
-        payload = self._fh.read(bsize - 12 - xlen - 8)
-        return zlib.decompress(payload, -15), coffset + bsize
+            data = b""
+        else:
+            bsize, xlen = hdr
+            body = self._fh.read(bsize - 12 - xlen)   # payload, CRC, ISIZE
+            payload, isize = body[:-8], int.from_bytes(body[-4:], "little")
+            data = (self._native.decompress_block(payload, isize)
+                    if self._native is not None
+                    else zlib.decompress(payload, -15))
+            self._next = coffset + bsize
+        self._cache_start, self._cache = coffset, data
+        return data
+
+    def seek(self, virtual_offset: int) -> int:
+        coffset, within = split_virtual_offset(virtual_offset)
+        self._load_block(coffset)
+        self._within = within
+        return virtual_offset
+
+    def read(self, size: int) -> bytes:
+        """Up to `size` bytes from the position, across blocks; fewer at
+        the end of the file."""
+        out = bytearray()
+        while len(out) < size:
+            take = self._cache[self._within:self._within + size - len(out)]
+            out += take
+            self._within += len(take)
+            if len(out) < size:
+                if self._next is None or not self._load_block(self._next):
+                    break
+                self._within = 0
+        return bytes(out)
+
+    def read_to(self, virtual_offset: int) -> bytes:
+        """The bytes from the position up to `virtual_offset` (a CSI
+        chunk's end, in this block or a later one)."""
+        end_block, end_within = split_virtual_offset(virtual_offset)
+        out = bytearray()
+        while self._cache_start != end_block:
+            out += self._cache[self._within:]
+            if self._next is None or not self._load_block(self._next):
+                return bytes(out)
+            self._within = 0
+        out += self._cache[self._within:end_within]
+        self._within = max(self._within, end_within)
+        return bytes(out)
 
     def read_at(self, uoffset: int, size: int) -> bytes:
+        """`size` bytes at uncompressed offset `uoffset`, found through the
+        .gzi."""
         if self.blocks is None:
             raise ValueError("read_at requires a .gzi index")
         blk = np.searchsorted(self.blocks["dstart"], uoffset, side="right") - 1
-        within = int(uoffset - self.blocks["dstart"][blk])
-        coffset = int(self.blocks["rstart"][blk])
-        out = bytearray()
-        while len(out) < size:
-            data, coffset = self._block(coffset)
-            if not data:
-                break
-            out += data[within:within + size - len(out)]
-            within = 0
-        return bytes(out)
+        self.seek(make_virtual_offset(int(self.blocks["rstart"][blk]),
+                                      int(uoffset - self.blocks["dstart"][blk])))
+        return self.read(size)
 
     def read_all(self) -> bytes:
         out = bytearray()
         coffset = 0
         while True:
-            data, coffset = self._block(coffset)
+            data = self._load_block(coffset)
             if not data:
                 break
             out += data
+            coffset = self._next
         return bytes(out)
 
     def close(self):

@@ -1,17 +1,17 @@
-"""Tabix-style indexed BED files: BGZF compression + CSI index (writer).
+"""Tabix-style indexed BED files: BGZF compression + CSI index.
 
-The writer of ``panagram_tpu.io.tabix``: CSI v1 (min_shift=14, depth=5,
-the htslib defaults of ``tabix --csi``, deeper when coordinates need it),
-byte-identical to panagram_tpu's for the same rows.  Reading the files
-(``TabixFile``) stays with panagram_tpu, whose readers open this
-package's index.
+``write_tabix`` writes the files of ``panagram_tpu.io.tabix``: CSI v1
+(min_shift=14, depth=5, the htslib defaults of ``tabix --csi``, deeper
+when coordinates need it), byte-identical to panagram_tpu's for the same
+rows.  ``TabixFile`` reads them (or htslib's): ``fetch(chrom, start, end)``
+yields the records overlapping [start, end) as tuples of column strings.
 """
 
 from __future__ import annotations
 
 import struct
 
-from .bgzf import BgzfWriter, make_virtual_offset
+from .bgzf import BgzfReader, BgzfWriter, make_virtual_offset
 
 MIN_SHIFT = 14
 DEPTH = 5
@@ -150,3 +150,110 @@ def write_tabix(rows, bgz_path: str, csi_path: str | None = None,
                     f.write(struct.pack("<QQ", cb, ce))
         f.write(struct.pack("<Q", 0))  # n_no_coor
     return bgz_path, csi_path
+
+
+class TabixFile:
+    """The reader of panagram_tpu.io.tabix.TabixFile (pysam.TabixFile's
+    fetch): ``fetch(chrom, start, end)`` yields tuples of column strings of
+    the records with start < end and end > start; an unknown contig raises
+    ValueError; ``fetch()`` yields every record."""
+
+    def __init__(self, bgz_path: str, csi_path: str | None = None):
+        self._reader = BgzfReader(bgz_path)
+        self._load_csi(csi_path or bgz_path + ".csi")
+
+    def _load_csi(self, path: str):
+        with open(path, "rb") as f:
+            data = f.read()
+        if data[:4] != b"CSI\x01":
+            raise ValueError(f"{path}: not a CSI index")
+        self.min_shift, self.depth = struct.unpack_from("<ii", data, 4)
+        (l_aux,) = struct.unpack_from("<i", data, 12)
+        aux = data[16:16 + l_aux]
+        off = 16 + l_aux
+        _, sc, bc, ec, _, _, l_nm = struct.unpack_from("<7i", aux, 0)
+        self.seq_col, self.beg_col, self.end_col = sc - 1, bc - 1, ec - 1
+        self.names = [n.decode() for n in aux[28:28 + l_nm].split(b"\x00")[:-1]]
+        self.name_idx = {n: i for i, n in enumerate(self.names)}
+        (n_ref,) = struct.unpack_from("<i", data, off)
+        off += 4
+        # per reference: bin -> (loffset, chunks); loffset is the virtual
+        # offset of the first record overlapping the bin's interval (the
+        # CSI form of tabix's linear index), which prunes chunks
+        self.ref_bins: list[dict[int, tuple[int, list[tuple[int, int]]]]] = []
+        for _ in range(n_ref):
+            (n_bin,) = struct.unpack_from("<i", data, off)
+            off += 4
+            bins = {}
+            for _ in range(n_bin):
+                b, loffset, n_chunk = struct.unpack_from("<IQi", data, off)
+                off += 16
+                chunks = [struct.unpack_from("<QQ", data, off + 16 * i)
+                          for i in range(n_chunk)]
+                off += 16 * n_chunk
+                bins[b] = (loffset, chunks)
+            self.ref_bins.append(bins)
+
+    @property
+    def contigs(self) -> list[str]:
+        return list(self.names)
+
+    def fetch(self, chrom=None, start=None, end=None):
+        if chrom is None:
+            for name in self.names:
+                yield from self.fetch(name)
+            return
+        if chrom not in self.name_idx:
+            raise ValueError(f"unknown contig {chrom!r}")
+        bins = self.ref_bins[self.name_idx[chrom]]
+        start = 0 if start is None else start
+        if end is None:
+            end = 1 << (self.min_shift + self.depth * 3)
+        # htslib's min_off: the loffset of the leaf bin holding `start`, or
+        # of its nearest present ancestor, bounds the first record that can
+        # overlap; chunks ending before it are skipped, others clipped
+        b = ((1 << self.depth * 3) - 1) // 7 + (start >> self.min_shift)
+        min_off = 0
+        while True:
+            if b in bins:
+                min_off = bins[b][0]
+                break
+            if b == 0:
+                break
+            b = (b - 1) >> 3
+        chunks = set()
+        for b in _reg2bins(start, max(end, start + 1), self.min_shift,
+                           self.depth):
+            if b in bins:
+                chunks.update(bins[b][1])
+        runs: list[tuple[int, int]] = []
+        for cb, ce in sorted(chunks):
+            if ce <= min_off:
+                continue
+            cb = max(cb, min_off)
+            if runs and cb <= runs[-1][1]:   # overlapping: one read
+                runs[-1] = (runs[-1][0], max(runs[-1][1], ce))
+            else:
+                runs.append((cb, ce))
+        for cb, ce in runs:
+            self._reader.seek(cb)
+            for line in self._reader.read_to(ce).split(b"\n"):
+                if not line:
+                    continue
+                cols = line.decode().split("\t")
+                try:
+                    rbeg = int(cols[self.beg_col])
+                    rend = int(cols[self.end_col])
+                except (ValueError, IndexError):
+                    continue
+                if rbeg < end and rend > start:
+                    yield tuple(cols)
+
+    def close(self):
+        self._reader.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

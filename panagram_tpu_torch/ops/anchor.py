@@ -15,12 +15,15 @@ copies the dense bytes back.
 host packing into a pinned staging buffer, the chunk's work on a side
 CUDA stream, and a ring of PIPELINE_DEPTH chunks in flight, so the host
 consumes one chunk (BGZF writes, histograms) while the card computes the
-next.
+next.  It reports the host's packing time and the copy-back's time (CUDA
+events around the three copies on the chunk's stream: the card's time,
+read once the chunk's results are waited for anyway).
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from collections import deque
 
 import numpy as np
@@ -63,16 +66,27 @@ class _Slot:
         self.by = buf(Ppad, nbytes, dtype=torch.uint8)
         self.popc = buf(Ppad, dtype=torch.int32)
         self.colsums = buf(ncols, dtype=torch.int32)
-        self.ready = torch.cuda.Event() if cuda else None
+        # the copy-back's bounds on the chunk's stream; `ready` marks the
+        # results complete
+        self.copying = torch.cuda.Event(enable_timing=True) if cuda else None
+        self.ready = torch.cuda.Event(enable_timing=True) if cuda else None
 
 
 def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int, bd,
-                         nbytes: int, ngenomes: int, k: int):
+                         nbytes: int, ngenomes: int, k: int,
+                         phase: dict | None = None):
     """Anchor one sequence's codes (uint8, >= 4 invalid) against the table
     of `bd` (a BucketedDict whose table is on the compute device).  Yields
     (start, m, bitmap bytes uint8 [m, nbytes], popc int32 [m], colsums
     int64 [ngenomes]) per chunk of `chunk` positions, in order.  The arrays
-    are views of reused buffers, valid until the next item is requested."""
+    are views of reused buffers, valid until the next item is requested.
+    `phase`, when given, gains seconds under "pack" (the host packing the
+    chunks into their staging buffers) and "copy" (the copy-back of the
+    results: on a CUDA device the card's time between events on the
+    chunk's stream, on the CPU the host's)."""
+    phase = {} if phase is None else phase
+    phase.setdefault("pack", 0.0)
+    phase.setdefault("copy", 0.0)
     table = bd.table
     device = table.device
     cuda = device.type == "cuda"
@@ -91,21 +105,28 @@ def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int, bd,
         ib = slot.inbuf.to(device, non_blocking=True)
         by, popc, colsums = anchor_chunk(ib[:n4], ib[n4:], L, k, table,
                                          bd.nbits, bd.cap, bd.nwords, nbytes)
+        if cuda:
+            slot.copying.record(stream)
+        t0 = time.perf_counter()
         slot.by.copy_(by, non_blocking=True)
         slot.popc.copy_(popc, non_blocking=True)
         slot.colsums.copy_(colsums, non_blocking=True)
         if cuda:
             slot.ready.record(stream)
+        else:
+            phase["copy"] += time.perf_counter() - t0
 
     def finish(start: int, m: int, slot: _Slot):
         if cuda:
             slot.ready.synchronize()
+            phase["copy"] += slot.copying.elapsed_time(slot.ready) / 1e3
         return (start, m, slot.by.numpy()[:m], slot.popc.numpy()[:m],
                 slot.colsums.numpy()[:ngenomes].astype(np.int64))
 
     try:
         for i, start in enumerate(range(0, nkmers, chunk)):
             m = min(chunk, nkmers - start)
+            t0 = time.perf_counter()
             buf[:] = 255   # invalid bases: positions past m never hit
             buf[:m + k - 1] = codes[start:start + m + k - 1]
             packed, nmask, _ = pack_bases_np(buf)
@@ -115,6 +136,7 @@ def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int, bd,
             inb = slot.inbuf.numpy()
             inb[:n4] = packed
             inb[n4:] = nmask
+            phase["pack"] += time.perf_counter() - t0
             ctx = torch.cuda.stream(stream) if cuda else contextlib.nullcontext()
             with ctx:
                 launch(slot)

@@ -60,7 +60,8 @@ def build_index_distributed(samples_or_dir, prefix=None, num_processes=1,
                             process_id=0, force=False, device="cuda",
                             **params):
     """Build as process `process_id` of `num_processes` over a shared
-    filesystem.  Returns the Index on process 0, None on the others."""
+    filesystem.  Returns the Index in read mode on process 0, None on the
+    others."""
     from ..ops.dictionary import PanKmerDict
     from ..pipeline import (
         _outputs_fresh,
@@ -76,12 +77,12 @@ def build_index_distributed(samples_or_dir, prefix=None, num_processes=1,
 
     dev = resolve_device(device)
     if process_id == 0:
-        index = Index(samples_or_dir, prefix=prefix, **params)
+        index = Index(samples_or_dir, mode="w", prefix=prefix, **params)
     else:
         # process 0 writes config.yaml and samples.tsv
         target = prefix or samples_or_dir
         _wait_for([config_path(target), samples_path(target)])
-        index = Index(target)
+        index = Index(target, mode="w")
     _clear_done_markers(index.prefix, process_id)
     if index.anchor_genomes[process_id::num_processes]:
         preload_embedding_modules()
@@ -121,5 +122,5 @@ def build_index_distributed(samples_or_dir, prefix=None, num_processes=1,
         _wait_for([_done_marker(index.prefix, "anchor", p)
                    for p in range(num_processes)])
         dist_stage(index, None, dev, force=force)
-        return index
+        return Index(index.prefix)
     return None

@@ -115,9 +115,14 @@ def sharded_writes_enabled(mesh: Mesh) -> bool:
     that process 0 stitches (the default with more than one process);
     PANAGRAM_TPU_SHARD_WRITES=0 makes every process write every file under
     its own prefix instead."""
+    return writes_pieces(mesh.process_count)
+
+
+def writes_pieces(process_count: int) -> bool:
+    """sharded_writes_enabled for a build of `process_count` processes."""
     if os.environ.get("PANAGRAM_TPU_SHARD_WRITES", "1") == "0":
         return False
-    return mesh.process_count > 1
+    return process_count > 1
 
 
 def barrier(mesh: Mesh):

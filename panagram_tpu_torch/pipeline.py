@@ -49,6 +49,7 @@ from .parallel.mesh import (
     launch,
     lockstep_decision,
     sharded_writes_enabled,
+    writes_pieces,
 )
 from .parallel.shard import (
     shard_dictionary,
@@ -114,11 +115,26 @@ def _iter_fastq(path):
                 yield "read", seq
 
 
+def _timed(items, phase: dict, key: str):
+    """Yield from `items`, adding the seconds spent producing each item to
+    phase[key]."""
+    it = iter(items)
+    end = object()
+    while True:
+        t0 = time.perf_counter()
+        item = next(it, end)
+        phase[key] += time.perf_counter() - t0
+        if item is end:
+            return
+        yield item
+
+
 def count_genome(index: Index, name: str, device: torch.device,
                  force=False) -> str:
     """Stage count[g]: distinct canonical k-mers of one genome: every k-mer
     of a FASTA, those seen FASTQ_MIN_COUNT times or more in a FASTQ read
-    set."""
+    set.  Logs its phases: parse (reading the sequence file into codes),
+    device (the counting, on `device`) and write (the npz)."""
     out = index.kmer_set_fname(name)
     g = index.genomes[name]
     fasta = g._fasta_path
@@ -128,18 +144,27 @@ def count_genome(index: Index, name: str, device: torch.device,
         return out
     t0 = time.time()
     os.makedirs(index.kmer_dir, exist_ok=True)
+    phase = {"parse": 0.0}
+    tp = time.perf_counter()
     if g.is_fastq:
-        codes = (seq_to_codes(seq) for _, seq in _iter_fastq(fasta))
+        codes = _timed((seq_to_codes(seq) for _, seq in _iter_fastq(fasta)),
+                       phase, "parse")
         kmers = counted_kmers_chunked(codes, index.k, device,
                                       min_count=FASTQ_MIN_COUNT)
     else:
-        codes = (seq_to_codes(seq) for _, seq in iter_fasta(fasta))
+        codes = _timed((seq_to_codes(seq) for _, seq in iter_fasta(fasta)),
+                       phase, "parse")
         kmers = distinct_kmers_chunked(codes, index.k, device)
+    phase["device"] = time.perf_counter() - tp - phase["parse"]
+    tp = time.perf_counter()
     tmp = out + f".tmp.{os.getpid()}.npz"
     np.savez(tmp, kmers=kmers, k=index.k)
     os.replace(tmp, out)
+    phase["write"] = time.perf_counter() - tp
     _benchmark(index.prefix, f"kmc.{name}", t0)
     logger.info(f"counted {name}: {len(kmers)} distinct {index.k}-mers")
+    logger.info(f"count phases {name}: " + " ".join(
+        f"{k}={v:.3f}s" for k, v in phase.items()))
     return out
 
 
@@ -244,11 +269,18 @@ def build_dict_stage(index: Index, device: torch.device, force=False) -> str:
     if not force and _outputs_fresh([out], set_files):
         return out
     t0 = time.time()
-    d = build_dictionary(_load_sets(index), index.k, ngenomes=index.ngenomes,
+    tp = time.perf_counter()
+    sets = _load_sets(index)
+    t_read = time.perf_counter() - tp
+    d = build_dictionary(sets, index.k, ngenomes=index.ngenomes,
                          device=device)
+    t_device = time.perf_counter() - tp - t_read
     d.save(out)
+    t_write = time.perf_counter() - tp - t_read - t_device
     _benchmark(index.prefix, "dict", t0)
     logger.info(f"dictionary: {len(d)} keys x {d.nwords} words")
+    logger.info(f"dict phases: read={t_read:.3f}s device={t_device:.3f}s "
+                f"write={t_write:.3f}s")
     return out
 
 
@@ -358,7 +390,7 @@ def _mesh_rank(mesh: Mesh, prefix: str, force: bool, strategy: str) -> dict:
     CPU)."""
     logging.basicConfig(level=logging.INFO if mesh.writer else logging.WARNING,
                         format=_LOG_FORMAT, datefmt=_LOG_DATEFMT)
-    index = Index(prefix)
+    index = Index(prefix, mode="w")
     dev = mesh.device
     if mesh.writer and index.anchor_genomes:
         preload_embedding_modules()    # only writers embed
@@ -412,7 +444,9 @@ def build_index(samples_or_dir: str, prefix=None, force=False,
     (host:port, served by process 0); device_dict does not apply.  A mesh
     build leaves this process's ranks' parallel.mesh.RankResults (their
     kernel launches, peak device memory and _mesh_rank's report) in the
-    returned Index's mesh_ranks."""
+    returned Index's mesh_ranks.  Returns the index in read mode, as
+    panagram_tpu does (in write mode on a process of a piece-writing build
+    other than 0, whose prefix holds no bitmap)."""
     dev = resolve_device(device)
     # INFO to stderr unless the process configured logging already (what
     # panagram_tpu's init_logger does); anchor logs also go to logs/
@@ -420,12 +454,19 @@ def build_index(samples_or_dir: str, prefix=None, force=False,
                         datefmt=_LOG_DATEFMT)
     if mesh_devices and mesh_strategy not in ("range", "genomes"):
         raise ValueError(f"unknown mesh strategy '{mesh_strategy}'")
-    index = Index(samples_or_dir, prefix=prefix, **params)
+    index = Index(samples_or_dir, mode="w", prefix=prefix, **params)
     os.makedirs(os.path.join(index.prefix, "logs"), exist_ok=True)
     if mesh_devices:
-        index.mesh_ranks = launch(
+        ranks = launch(
             _mesh_rank, (index.prefix, force, mesh_strategy), mesh_devices,
             dev.type, num_processes, process_id, coordinator)
+        if process_id and writes_pieces(num_processes):
+            # this process's prefix holds the tables only: process 0's
+            # holds the stitched bitmaps
+            index.mesh_ranks = ranks
+            return index
+        index = Index(index.prefix)
+        index.mesh_ranks = ranks
         return index
 
     if index.anchor_genomes:
@@ -458,4 +499,4 @@ def build_index(samples_or_dir: str, prefix=None, force=False,
         del bucketed
 
     dist_stage(index, pan_dict, dev, force=force)
-    return index
+    return Index(index.prefix)

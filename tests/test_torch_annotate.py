@@ -170,8 +170,10 @@ def test_query_and_bins_match_panagram_tpu(anno):
     for g, chrom, start, end, step in (("g1", "chr1", None, None, 100),
                                        ("g2", "chr2", 7, 1399, 1),
                                        ("g3", "chr1", 100, 2000, 200)):
-        pos, bits = port.genomes[g].query(chrom, start, end, step)
+        got = port.genomes[g].query(chrom, start, end, step)
+        pos, bits = got.index, got.values
         want = ref.query_bitmap(g, chrom, start, end, step)
+        assert list(got.columns) == list(want.columns)
         assert np.array_equal(pos, want.index.to_numpy())
         assert np.array_equal(bits, want.to_numpy())
         for binlen in (300, 1000):
@@ -181,6 +183,7 @@ def test_query_and_bins_match_panagram_tpu(anno):
             assert np.array_equal(starts, wpair.columns.to_numpy())
             assert np.array_equal(scaled, wpair.to_numpy().T, equal_nan=True)
     ref.close()
+    port.close()
 
 
 def test_annotate_cli_matches_run_annotate(anno, tmp_path):
