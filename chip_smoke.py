@@ -873,7 +873,9 @@ def read_phase(work: str, seqs: dict, card: str):
     chromosome by query_genes with the bitmap's popcounts, every
     annotation type of the GFFs by query_anno; the aggregates.  Prints
     the host's times for opening the index, a READ_MBP step-1 query, a
-    whole chromosome at step 100 and a whole chromosome's gene fetch."""
+    whole chromosome at step 100 and a whole chromosome's gene fetch.
+    Returns g0's presence bits over its first ORACLE_POSITIONS positions,
+    from bitmap.1.gz and from the numpy oracle."""
     from panagram_tpu_torch.__main__ import main
     from panagram_tpu_torch.index import Index
     from panagram_tpu_torch.io.bgzf import MAX_BLOCK_DATA, decompress_file
@@ -992,6 +994,384 @@ def read_phase(work: str, seqs: dict, card: str):
           f"{GENOME_BP / 1e6:g}-Mbp chromosome at step 100 {chrom_s:.4f} s; a "
           f"whole chromosome's gene fetch ({ngenes} genes) {fetch_s:.4f} s",
           flush=True)
+    return bits[:ORACLE_POSITIONS], obits
+
+
+def http_get(port: int, path: str):
+    """(status, content type, body, seconds) of one GET to 127.0.0.1."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=600) as r:
+            out = r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        out = e.code, e.headers.get("Content-Type"), e.read()
+    return out + (time.perf_counter() - t0,)
+
+
+def start_viewer(index, params=None):
+    """The port's viewer handler on ThreadingHTTPServer(("127.0.0.1", 0))
+    in a thread, with an index and a cache of its own."""
+    import threading
+    from collections import OrderedDict
+    from http.server import ThreadingHTTPServer
+
+    from panagram_tpu_torch.view import server
+
+    handler = type("Handler", (server._Handler,), {
+        "index": index, "_cache": OrderedDict(),
+        "params": params or {"max_chr_bins": 350, "init": {},
+                             "bookmarks": []}})
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, handler
+
+
+def view_phase(work: str, card: str, g0_bits, g0_oracle):
+    """The port's viewer (``view``'s server) over the slice's index and the
+    annotated full-index tree, each on an ephemeral port: the page and
+    /api/meta (anchors and sizes against chrs.tsv), /api/bitdump over 1 kbp
+    at steps 1 and 100 against g0's bitmap rows and the numpy oracle,
+    /api/genes with and without q= against query_genes.  Where matplotlib
+    imports, every figure route (PNGs and their /api/view and /api/map
+    twins): PNG signature, map rows inside the image, collapse=<root> one
+    merged row, and a second identical request served from the cache.
+    Where it does not, every figure route must answer 500 naming
+    matplotlib.  Prints each route's wall, first and repeated request."""
+    from panagram_tpu_torch.index import Index
+
+    try:
+        import matplotlib
+        mpl = matplotlib.__version__
+    except ImportError:
+        mpl = None
+    print(f"view: matplotlib: {mpl or 'absent'}", flush=True)
+    walls = []
+    full = Index(os.path.join(work, "idx_full_c3"))
+    idx = Index(os.path.join(work, "idx"))
+    servers = {"slice": start_viewer(idx), "full": start_viewer(full)}
+    try:
+        def get(which, path, want=200):
+            httpd, handler = servers[which]
+            port = httpd.server_address[1]
+            first = http_get(port, path)
+            cached = len(handler._cache)
+            again = http_get(port, path)
+            if first[0] != want or again[:3] != first[:3]:
+                raise AssertionError(f"view {which} {path}: status "
+                                     f"{first[0]} (want {want}), repeat "
+                                     f"{again[0]}: {first[2][-300:]!r}")
+            if len(handler._cache) != cached:
+                raise AssertionError(f"view {path}: the repeat was rendered "
+                                     "again, not served from the cache")
+            walls.append((which, path, first[3], again[3]))
+            return first[2]
+
+        if b"Pangenome" not in get("slice", "/"):
+            raise AssertionError("view: the page lacks its tabs")
+        meta = json.loads(get("slice", "/api/meta"))
+        sizes = {}
+        for a in ANCHORS:
+            with open(os.path.join(work, "idx", "anchor", a, "chrs.tsv")) as f:
+                f.readline()
+                sizes[a] = {line.split("\t")[0]: int(line.split("\t")[2])
+                            for line in f}
+        if meta["anchors"] != list(ANCHORS) or meta["sizes"] != sizes \
+                or meta["ngenomes"] != GENOMES:
+            raise AssertionError(f"view /api/meta: {meta['anchors']} "
+                                 f"{meta['sizes']}")
+        s, e = 5_000, 6_000
+        for step in (1, 100):
+            body = get("slice", f"/api/bitdump?genome=g0&chrom=chr1&start={s}"
+                       f"&end={e}&step={step}").decode().splitlines()
+            rows = np.array([[int(x) for x in line.split("\t")]
+                             for line in body[1:]])
+            if body[0] != "\t" + "\t".join(f"g{g}" for g in range(GENOMES)) \
+                    or not np.array_equal(rows[:, 0], np.arange(s, e, step)) \
+                    or not np.array_equal(rows[:, 1:], g0_bits[s:e:step]) \
+                    or not np.array_equal(rows[:, 1:], g0_oracle[s:e:step]):
+                raise AssertionError(f"view /api/bitdump at step {step} "
+                                     "differs from bitmap.1.gz or the oracle")
+        genes = full.query_genes("g0")
+        col = {c: i for i, c in enumerate(genes.columns)}
+        want = [{"chrom": r[col["chr"]], "start": r[col["start"]],
+                 "end": r[col["end"]], "name": r[col["name"]],
+                 "unique": r[col[1]], "universal": r[col[GENOMES + 1]]}
+                for r in genes.values]
+        for q in ("", "g12"):
+            got = json.loads(get("full", "/api/genes?genome=g0"
+                                 + (f"&q={q}" if q else "")))
+            sub = [w for w in want if q.upper() in w["name"].upper()]
+            if got != sub or not sub:
+                raise AssertionError(f"view /api/genes q={q!r}: {len(got)} "
+                                     f"genes, query_genes {len(sub)}")
+        print(f"view: /, /api/meta, /api/bitdump (steps 1, 100) equal "
+              f"chrs.tsv, bitmap.1.gz and the oracle; /api/genes equals "
+              f"query_genes ({len(want)} genes; q=g12 {len(sub)})",
+              flush=True)
+
+        w0 = "start=1000000&end=1030000"
+        figures = [("slice", p) for p in (
+            "/plot/pangenome/composition.png", "/plot/pangenome/dendrogram.png",
+            "/plot/pangenome/sizes.png", "/plot/pangenome/chr_hist.png",
+            "/plot/anchor/g0/whole.png", "/api/map/anchor/g0",
+            "/plot/anchor/g0/umap.png", "/plot/anchor/g0/genes.png",
+            f"/plot/chrom/g0/chr1/whole.png?{w0}",
+            f"/api/map/chrom/g0/chr1?{w0}", "/plot/chrom/g0/chr1/umap.png",
+            f"/plot/chrom/g0/chr1/view.png?{w0}", f"/api/view/g0/chr1?{w0}",
+            "/api/view/g0/chr1")] + [("full", p) for p in (
+                "/plot/chrom/g1/chr1/view.png?start=0&end=30000",
+                "/api/view/g1/chr1?start=0&end=30000&types=exon",
+                "/plot/anchor/g1/genes.png")]
+        if mpl is None:
+            for which, path in figures:
+                body = get(which, path, want=500)
+                if b"matplotlib" not in body:
+                    raise AssertionError(f"view {path} without matplotlib: "
+                                         f"{body[-300:]!r}")
+            print(f"view: {len(figures)} figure routes answer 500 naming "
+                  "matplotlib", flush=True)
+        else:
+            for which, path in figures:
+                body = get(which, path)
+                if "/api/" not in path:
+                    if body[:8] != b"\x89PNG\r\n\x1a\n":
+                        raise AssertionError(f"view {path}: not a PNG")
+                    continue
+                m = json.loads(body)
+                for r in m["rows"]:
+                    if not (0 <= r["px0"] < r["px1"] <= m["w"]
+                            and 0 <= r["py0"] < r["py1"] <= m["h"]):
+                        raise AssertionError(f"view {path}: map row {r} "
+                                             "outside the image")
+            tree = json.loads(get("slice", f"/api/view/g0/chr1?{w0}"))["tree"]
+            m = json.loads(get("slice", f"/api/view/g0/chr1?{w0}&collapse="
+                               f"{tree['id']}"))
+            if m["labels"] != [f"[{GENOMES} genomes]"]:
+                raise AssertionError(f"view collapse: labels {m['labels']}")
+            print(f"view: {len(figures)} figure routes render (PNG "
+                  "signatures, maps inside the images); collapsing the root "
+                  "leaves one row", flush=True)
+    finally:
+        for httpd, _ in servers.values():
+            httpd.shutdown()
+            httpd.server_close()
+        idx.close()
+        full.close()
+    print(f"view walls [{card}] (s, first request / the same again):",
+          flush=True)
+    for which, path, first, again in walls:
+        print(f"  {which:5s} {path:58s} {first:.4f} / {again:.4f}",
+              flush=True)
+
+
+INTROS_BP, INTROS_K, INTROS_BIN, INTROS_STEP = 2_000_000, 21, 20_000, 100
+INTROS_GENOMES = ["Reference", "WildRelative", "OffspringGen1",
+                  "OffspringGen2", "OffspringGen3"]
+
+
+def intros_config(work: str, name: str, calling: str, sweep=False) -> str:
+    """An introgression config as a user writes it (flow and block lists,
+    comments, ~), run on the intros phase's index."""
+    d = os.path.join(work, "intros")
+    path = os.path.join(d, f"{name}.yaml")
+    with open(path, "w") as f:
+        f.write(f"""# introgression calls, {name}
+general:
+  output_dir: {d}/{name}
+  index_dir: {d}/idx
+  tsv: {d}/group.tsv
+  bin: {INTROS_BIN}
+  ref: Reference
+  threads: {4 if sweep else 1}
+calling:
+  run: true
+  grp: [OFFSPRING]
+  stp: {INTROS_STEP}
+  gnm: ~
+  trm: 3
+  ssz: 2
+  rmf: true      # drop the k-mers every genome holds
+  rmu: null
+  ogrp: ~
+  edg: false
+  vis: false
+{calling}postprocessing:
+  run: true
+  act:
+    - fgap
+    - rmbn
+  min: 2
+  gap: 1
+scoring:
+  run: true
+  gdt: {d}/sim
+  act: ~
+  min: 1
+  gap: 1
+  thr: 0.25
+  cmp: [WT]
+  vis: false
+""")
+    return path
+
+
+def intros_phase(work: str, card: str):
+    """The port's introgression pipeline end to end through its CLI: a
+    random INTROS_BP reference (seed 0) and ``intros simulate`` (4
+    introgressions of 100-200 kbp, 2 rounds, seed 7) give the reference,
+    its wild relative and three offspring generations; ``index`` builds
+    them on the card at k=INTROS_K (pack_mix, probe_sorted, masks_to_bytes
+    and fused_popcount_colsums must launch), ``intros bed2txt`` bins the
+    truth at INTROS_BIN; a 2-way config (cmp [REF], urf, rmf, mean
+    smoothing), a 3-way one (cmp [WT]) and the 2-way one with --sweep (18
+    thresholds, 4 threads) run through ``intros``.  The 2-way calls must
+    reach recall >= 0.9 and precision >= 0.85 against the simulated truth,
+    the 3-way ones recall >= 0.9 (tests/test_intros.py's bars); the
+    heatmap sub-tool must write its SVG, or, without matplotlib, raise
+    naming it.  Prints the walls of simulate, the build, bed2txt and, per
+    config, calling, postprocess and score.  Cuts: one chromosome of
+    INTROS_BP (the simulator's defaults hold 3-7 Mbp introgressions on whole
+    plant chromosomes), 3 offspring generations, vis false (the card's
+    machine has no matplotlib)."""
+    from panagram_tpu_torch.__main__ import main
+    from panagram_tpu_torch.index import _read_table
+    from panagram_tpu_torch.intros import runner
+    from panagram_tpu_torch.ops import kernels
+
+    d = os.path.join(work, "intros")
+    os.makedirs(d)
+    rng = np.random.default_rng(0)
+    write_fasta(os.path.join(d, "ref.fasta"), "chr1",
+                rng.integers(0, 4, INTROS_BP, dtype=np.uint8))
+    walls = {}
+    t0 = time.perf_counter()
+    main(["intros", "simulate", "--ref", os.path.join(d, "ref.fasta"),
+          "--out-folder", os.path.join(d, "sim"), "--num-introgressions", "4",
+          "--introgression-size-min", "100000",
+          "--introgression-size-max", "200000",
+          "--rel-sub-rate", "0.02", "--rel-ins-rate", "1e-5",
+          "--rel-del-rate", "1e-5", "--rel-ins-size-min", "1",
+          "--rel-ins-size-max", "50", "--rel-del-size-min", "1",
+          "--rel-del-size-max", "50", "--mut-sub-rate", "5e-4",
+          "--mut-ins-rate", "1e-6", "--mut-del-rate", "1e-6",
+          "--mut-ins-size-min", "1", "--mut-ins-size-max", "20",
+          "--mut-del-size-min", "1", "--mut-del-size-max", "20",
+          "--rounds", "2", "--seed", "7"])
+    walls["simulate"] = time.perf_counter() - t0
+    sim = os.path.join(d, "sim")
+    fastas = [os.path.join(d, "ref.fasta")] + [os.path.join(sim, f) for f in (
+        "ref_wildrelative.fasta", "ref_0_offspring.fasta",
+        "ref_1_offspring.fasta", "ref_2_offspring.fasta")]
+    with open(os.path.join(d, "samples.tsv"), "w") as f:
+        f.write("name\tfasta\n" + "".join(
+            f"{n}\t{p}\n" for n, p in zip(INTROS_GENOMES, fastas)))
+    with open(os.path.join(d, "group.tsv"), "w") as f:
+        f.write("name\tgroup\nReference\tREF\nWildRelative\tWT\n"
+                + "".join(f"OffspringGen{i}\tOFFSPRING\n" for i in (1, 2, 3)))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    main(["index", os.path.join(d, "samples.tsv"), "-o",
+          os.path.join(d, "idx"), "-k", str(INTROS_K)])
+    torch.cuda.synchronize()
+    walls["index build"] = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    for name in ANCHOR_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"intros: {name} was not launched by the "
+                                 "build")
+    t0 = time.perf_counter()
+    main(["intros", "bed2txt", "--gt_bed_file",
+          os.path.join(sim, "ref_0_introgressions.bed"), "--index_dir",
+          os.path.join(d, "idx"), "--ref", "Reference", "--wild_type",
+          "WildRelative", "--wild_type_group", "WT", "--bin_size",
+          str(INTROS_BIN)])
+    walls["bed2txt"] = time.perf_counter() - t0
+    with open(os.path.join(sim, "ref_0_introgressions.bed")) as f:
+        truth = [line.split("\t") for line in f]
+    print(f"intros: simulated {len(truth)} introgressions of "
+          f"{[int(r[2]) - int(r[1]) for r in truth]} bp; index build "
+          f"launches {launches}", flush=True)
+
+    # per-stage walls of the runner, summed over its threads
+    stage_s: dict = {}
+    real = {n: getattr(runner, n) for n in
+            ("call_introgressions", "postprocess", "score")}
+
+    def timed(name):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return real[name](*a, **kw)
+            finally:
+                stage_s[name] = stage_s.get(name, 0.0) + \
+                    time.perf_counter() - t
+        return run
+
+    configs = [
+        ("2way", "  cmp: [REF]\n  thr: [0.8]\n  sft: mean\n  urf: true\n",
+         False, "REF", 0.85),
+        ("3way", "  cmp:\n  - WT\n  thr: [0.2]\n  sft: ~\n  urf: false\n",
+         False, "WT", None),
+        ("sweep", "  cmp: [REF]\n  thr: [0.8]\n  sft: mean\n  urf: true\n",
+         True, "REF", None),
+    ]
+    for name in real:
+        setattr(runner, name, timed(name))
+    try:
+        for name, calling, sweep, itype, min_prec in configs:
+            path = intros_config(work, name, calling, sweep)
+            stage_s.clear()
+            t0 = time.perf_counter()
+            main(["intros", path] + (["--sweep"] if sweep else []))
+            walls[f"{name}: command"] = time.perf_counter() - t0
+            for stage, v in stage_s.items():
+                walls[f"{name}: {stage}"] = v
+            thr = "0.8" if name != "3way" else "0.2"
+            t = _read_table(os.path.join(
+                d, name, f"{name}_{thr}", "scored", f"metrics_{itype}.tsv"),
+                "\t", "")
+            m = dict(zip(t.columns, t.values[0]))
+            print(f"intros {name} at {thr}: recall {m['Recall']:.4f}, "
+                  f"precision {m['Precision']:.4f}, TP {int(m['True Positive'])}"
+                  f", FP {int(m['False Positive'])}, FN "
+                  f"{int(m['False Negative'])}", flush=True)
+            if not m["Recall"] >= 0.9 or (min_prec and
+                                          not m["Precision"] >= min_prec):
+                raise AssertionError(f"intros {name}: recall {m['Recall']}, "
+                                     f"precision {m['Precision']}")
+            if sweep:
+                n = sum(os.path.isfile(os.path.join(
+                    d, name, f"{name}_{t_}", "scored", "metrics_REF.tsv"))
+                    for t_ in runner.SWEEP_2WAY)
+                if n != len(runner.SWEEP_2WAY):
+                    raise AssertionError(f"intros sweep: {n} thresholds "
+                                         "scored")
+    finally:
+        for name, fn in real.items():
+            setattr(runner, name, fn)
+    t0 = time.perf_counter()
+    try:
+        main(["intros", "heatmap", "--index-dir", os.path.join(d, "idx"),
+              "--anchor", "OffspringGen1", "--bin", str(INTROS_BIN),
+              "--groups", os.path.join(d, "group.tsv"), "--out",
+              os.path.join(d, "heatmaps")])
+        if not os.path.isfile(os.path.join(d, "heatmaps",
+                                           "OffspringGen1_chr1_heatmap.svg")):
+            raise AssertionError("intros heatmap: no SVG")
+        heat = "wrote its SVG"
+    except ImportError as e:
+        if "matplotlib" not in str(e):
+            raise
+        heat = f"raised without matplotlib: {e}"
+    walls["heatmap"] = time.perf_counter() - t0
+    print(f"intros: the heatmap sub-tool {heat}", flush=True)
+    print(f"intros walls [{card}] (s):", flush=True)
+    for k, v in walls.items():
+        print(f"  {k:28s} {v:.3f}", flush=True)
 
 
 # the kernels of each mesh strategy's path: the range strategy's local
@@ -1239,7 +1619,9 @@ def main():
         launches, seqs, slice_peak = slice_phase(work, card)
         device_dict_phase(work, card)
         full_index_phase(work, seqs, card, dev)
-        read_phase(work, seqs, card)
+        g0_bits, g0_oracle = read_phase(work, seqs, card)
+        view_phase(work, card, g0_bits, g0_oracle)
+        intros_phase(work, card)
         mesh_phase(work, card, dev, slice_peak)
     launches["mosaic_probe"] = mosaic_launches
     layout_phase(dev, card)

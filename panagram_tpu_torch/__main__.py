@@ -1,15 +1,19 @@
 """CLI: python -m panagram_tpu_torch index samples.tsv -k 31 --prefix idx
      python -m panagram_tpu_torch annotate idx genome genes.gff
      python -m panagram_tpu_torch bitdump idx genome chrom [start end step]
+     python -m panagram_tpu_torch view idx [genome chrom start end]
+     python -m panagram_tpu_torch intros config.yaml|simulate|bed2txt|heatmap
 
-The ``index``, ``annotate`` and ``bitdump`` subcommands of panagram_tpu's
-CLI with the same arguments.  ``index`` runs on one device (``--device``,
-default cuda), or with ``--mesh N`` on N ranks of one device each;
-``--num-processes`` builds from several processes (with ``--mesh``: one
-mesh across them, meeting at ``--coordinator``; without: coordinated
-through files).  ``bitdump`` prints bitmap rows of a window, host work
-only: with ``-v`` the genome names and one line of bits per row, else the
-table panagram_tpu prints through pandas (``frame_text``).
+The subcommands of panagram_tpu's CLI with the same arguments.  ``index``
+runs on one device (``--device``, default cuda), or with ``--mesh N`` on N
+ranks of one device each; ``--num-processes`` builds from several
+processes (with ``--mesh``: one mesh across them, meeting at
+``--coordinator``; without: coordinated through files).  ``bitdump``
+prints bitmap rows of a window, host work only: with ``-v`` the genome
+names and one line of bits per row, else the table panagram_tpu prints
+through pandas (``frame_text``).  ``view`` (the browser's server) and
+``intros`` (the introgression pipeline and its sub-tools) are host work
+too, as in panagram_tpu.
 """
 
 from __future__ import annotations
@@ -192,6 +196,44 @@ def _run_bitdump(args):
         idx.close()
 
 
+def _add_view(sub):
+    p = sub.add_parser("view", help="Serve the pan-genome browser")
+    p.add_argument("index_dir")
+    p.add_argument("genome", nargs="?", default=None)
+    p.add_argument("chrom", nargs="?", default=None)
+    p.add_argument("start", type=int, nargs="?", default=None)
+    p.add_argument("end", type=int, nargs="?", default=None)
+    p.add_argument("--port", default="8050")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--ndebug", action="store_true")
+    p.add_argument("--max-chr-bins", type=int, default=350)
+    p.add_argument("--bookmarks", default=None)
+    p.add_argument("--order", nargs="*", default=None,
+                   help="fixed genome row order for heatmaps (default: "
+                        "ward-clustering order)")
+    return p
+
+
+def _run_view(args):
+    from .view.server import serve
+
+    serve(args)
+
+
+def _add_intros(sub):
+    p = sub.add_parser("intros", help="Introgression calling pipeline")
+    p.add_argument("target", help="config.yaml, or one of: heatmap, bed2txt, simulate")
+    p.add_argument("--sweep", action="store_true")
+    p.add_argument("extra", nargs=argparse.REMAINDER)
+    return p
+
+
+def _run_intros(args):
+    from .intros.runner import main as intros_main
+
+    intros_main(args)
+
+
 # pandas' display defaults (display.max_rows, display.min_rows,
 # display.max_seq_items)
 MAX_ROWS, MIN_ROWS, MAX_SEQ_ITEMS = 60, 10, 100
@@ -278,11 +320,13 @@ def main(argv=None):
         description="Pan-genome k-mer index build on PyTorch devices")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_index(sub)
-    _add_annotate(sub)
+    _add_view(sub)
     _add_bitdump(sub)
+    _add_annotate(sub)
+    _add_intros(sub)
     args = parser.parse_args(argv)
-    {"index": _run_index, "annotate": _run_annotate,
-     "bitdump": _run_bitdump}[args.cmd](args)
+    {"index": _run_index, "view": _run_view, "bitdump": _run_bitdump,
+     "annotate": _run_annotate, "intros": _run_intros}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -4,8 +4,9 @@ The fields are those of ``panagram_tpu.config`` (the reference-compatible
 schema), so either package reads the other's ``config.yaml``.  The file is
 written by a small emitter for the subset of YAML this schema uses (scalars,
 one level of nested mappings, lists of scalars) whose output equals
-``yaml.dump(cfg.to_dict())`` byte for byte, and read back by a parser of that
-same subset.
+``yaml.dump(cfg.to_dict())`` byte for byte.  ``load_yaml`` reads it back, and
+reads the introgression pipeline's configs too: block mappings and lists,
+flow lists of scalars, comments; anything else raises.
 """
 
 from __future__ import annotations
@@ -184,71 +185,186 @@ def dump_yaml(d: dict) -> str:
     return "\n".join(out) + "\n"
 
 
+def _int(s: str) -> int:
+    """A YAML 1.1 int as pyyaml resolves it: underscores dropped, 0b / 0x /
+    leading-0 octal bases."""
+    t = s.replace("_", "")
+    sign = -1 if t[0] == "-" else 1
+    t = t.lstrip("+-")
+    if t.startswith("0b"):
+        return sign * int(t[2:], 2)
+    if t.startswith("0x"):
+        return sign * int(t[2:], 16)
+    if len(t) > 1 and t[0] == "0":
+        return sign * int(t, 8)
+    return sign * int(t)
+
+
+class _Unsupported(ValueError):
+    pass
+
+
 def _parse_scalar(s: str):
-    if s.startswith("'") and s.endswith("'") and len(s) >= 2:
+    """One scalar of the subset, typed as yaml.safe_load types it: quoted
+    strings, null / ~, booleans, ints, floats, [] and {}, else a plain
+    string.  Raises _Unsupported for what the subset leaves out (aliases,
+    anchors, tags, block scalars, timestamps, sexagesimals, escapes)."""
+    if s.startswith("'"):
+        if len(s) < 2 or not s.endswith("'") or "'" in s[1:-1].replace("''", ""):
+            raise _Unsupported("a single-quoted string must end the value")
         return s[1:-1].replace("''", "'")
-    if s.startswith('"') and s.endswith('"') and len(s) >= 2:
+    if s.startswith('"'):
+        if len(s) < 2 or not s.endswith('"') or '"' in s[1:-1]:
+            raise _Unsupported("a double-quoted string must end the value")
+        if "\\" in s:
+            raise _Unsupported("escapes in double-quoted strings")
         return s[1:-1]
     if s == "[]":
         return []
     if s == "{}":
         return {}
+    if s[0] in "&*!|>%@`{[]}," or s.startswith("- ") or s == "-":
+        raise _Unsupported(f"{s[0]!r} starts no scalar of the subset")
+    if ": " in s or s.endswith(":") or " #" in s:
+        raise _Unsupported("a plain value holds ': ' or ' #'")
     if _IMPLICIT[4].match(s):
         return None
     if _IMPLICIT[0].match(s):
         return s.lower() in ("yes", "true", "on")
     if _IMPLICIT[2].match(s):
-        try:
-            return int(s.replace("_", ""), 0)
-        except ValueError:
-            return s
+        if ":" in s:
+            raise _Unsupported("sexagesimal ints")
+        return _int(s)
     if _IMPLICIT[1].match(s):
+        if ":" in s:
+            raise _Unsupported("sexagesimal floats")
         low = s.lower().replace("_", "")
         if low.endswith(".inf"):
             return float("-inf") if low.startswith("-") else float("inf")
         if low == ".nan":
             return float("nan")
-        try:
-            return float(low)
-        except ValueError:
-            return s
+        return float(low)
+    if any(p.match(s) for p in _IMPLICIT[3:]):
+        raise _Unsupported("timestamps, merge keys and YAML's '=' value")
     return s
 
 
-def load_yaml(text: str) -> dict:
-    """Parse the block-style subset dump_yaml writes (and yaml.dump writes
-    for this schema): top-level keys, one level of nested mappings, and
-    lists of scalars whose '- ' items sit at their key's indentation."""
-    root: dict = {}
-    parent: dict = root          # mapping that takes "key: value" lines
-    pending = None               # (container, key) of a "key:" line
-    for raw in text.splitlines():
-        if not raw.strip() or raw.lstrip().startswith("#"):
-            continue
-        indent = len(raw) - len(raw.lstrip(" "))
-        line = raw.strip()
-        if indent == 0 and not line.startswith("- "):
-            parent = root
-        if line.startswith("- "):
-            if pending is None:
-                raise ValueError(f"config.yaml: list item without key: {raw!r}")
-            cont, key = pending
-            if not isinstance(cont[key], list):
-                cont[key] = []
-            cont[key].append(_parse_scalar(line[2:].strip()))
-            continue
-        key, sep, val = line.partition(":")
-        if not sep:
-            raise ValueError(f"config.yaml: cannot parse line {raw!r}")
-        val = val.strip()
-        target = root if indent == 0 else parent
-        if val:
-            target[key] = _parse_scalar(val)
-            pending = None
+def _flow_list(s: str) -> list:
+    """A flow list of scalars, [a, 'b', 0.8]."""
+    items, cur, quote = [], "", None
+    for ch in s[1:-1]:
+        if quote:
+            cur += ch
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            cur += ch
+            quote = ch
+        elif ch == ",":
+            items.append(cur.strip())
+            cur = ""
+        elif ch in "[]{}":
+            raise _Unsupported("nested flow collections")
         else:
-            # "key:" opens a nested mapping or a list; the next line decides
-            target[key] = {}
-            pending = (target, key)
-            if indent == 0:
-                parent = target[key]
+            cur += ch
+    if quote:
+        raise _Unsupported("an unterminated quoted string")
+    items.append(cur.strip())
+    if items == [""]:
+        return []
+    if items[-1] == "":
+        items.pop()     # a trailing comma
+    if "" in items:
+        raise _Unsupported("an empty flow list item")
+    return [_parse_scalar(x) for x in items]
+
+
+def _value(s: str):
+    if s.startswith("[") and s.endswith("]"):
+        return _flow_list(s)
+    return _parse_scalar(s)
+
+
+def _strip_comment(line: str) -> str:
+    """The line without its comment: a '#' at its start or after a blank,
+    outside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"" and (i == 0 or line[i - 1] in " \t:[,-"):
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def load_yaml(text: str) -> dict:
+    """Parse block-style YAML of mappings, lists of scalars and scalars, as
+    yaml.safe_load reads it: nested mappings at any depth, block lists whose
+    '- ' items sit at their key's indentation or deeper, flow lists of
+    scalars, null / ~, booleans, ints, floats, quoted strings and trailing
+    comments (what dump_yaml writes, and the introgression configs as users
+    write them).  Anything outside that subset raises a ValueError naming
+    the line."""
+    root: dict = {}
+    # open containers: (indent of their entries, dict or list); a "key:"
+    # line leaves `pending` for the next line to decide what it holds
+    stack: list = [(0, root)]
+    pending = None          # (parent dict, key, indent of the key)
+    lines = [(n, _strip_comment(raw)) for n, raw in
+             enumerate(text.splitlines(), 1)]
+    lines = [(n, ln) for n, ln in lines if ln.strip()]
+    if lines and lines[0][1] == "---":
+        lines = lines[1:]
+    for n, raw in lines:
+        try:
+            if "\t" in raw[:len(raw) - len(raw.lstrip())]:
+                raise _Unsupported("tabs in the indentation")
+            indent = len(raw) - len(raw.lstrip(" "))
+            line = raw.strip()
+            item = line == "-" or line.startswith("- ")
+            if pending is not None:
+                parent, key, kind = pending
+                pending = None
+                if item and indent >= kind:
+                    parent[key] = []
+                    stack.append((indent, parent[key]))
+                elif not item and indent > kind:
+                    parent[key] = {}
+                    stack.append((indent, parent[key]))
+            while stack and indent < stack[-1][0]:
+                stack.pop()
+            if not stack or indent != stack[-1][0]:
+                raise _Unsupported("the indentation matches no open block")
+            cont = stack[-1][1]
+            if item:
+                if not isinstance(cont, list):
+                    raise _Unsupported("a list item where a key belongs")
+                cont.append(_value(line[2:].strip()) if line != "-" else None)
+                continue
+            if isinstance(cont, list):
+                # a key after a list's items closes the list
+                stack.pop()
+                if not stack or indent != stack[-1][0] \
+                        or isinstance(stack[-1][1], list):
+                    raise _Unsupported("a key inside a list")
+                cont = stack[-1][1]
+            key, sep, val = line.partition(":")
+            if not sep or (val and val[0] != " "):
+                raise _Unsupported("neither 'key: value' nor '- item'")
+            key = key.strip()
+            if not key or key[0] in "'\"&*!|>%@`{[?-" or " #" in key:
+                raise _Unsupported(f"the key {key!r}")
+            val = val.strip()
+            if val:
+                cont[key] = _value(val)
+            else:
+                # "key:" opens a mapping or a list, or is null
+                cont[key] = None
+                pending = (cont, key, indent)
+        except _Unsupported as e:
+            raise ValueError(f"YAML line {n} is outside the subset this "
+                             f"reader takes ({e}): {raw.strip()!r}") from None
     return root

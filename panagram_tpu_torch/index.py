@@ -147,11 +147,14 @@ class Table:
     Series: `values` (a DataFrame's ``to_numpy()``: [rows, columns], an
     object array where the columns mix types; a Series' values: [rows]),
     `index` (one label per row, a tuple where the DataFrame has a
-    MultiIndex) and `columns` (the column labels; None for a Series)."""
+    MultiIndex), `columns` (the column labels; None for a Series) and
+    `index_name`."""
 
     values: np.ndarray
     index: Sequence
     columns: list | None = None
+    # the name of the row labels, where the DataFrame's index has one
+    index_name: str | None = None
 
 
 def _frequencies(t: Table) -> Table:
@@ -267,13 +270,13 @@ class Index:
         self.samples = _read_tsv(samples_path(self.prefix))
         self.ngenomes = len(self.samples)
         self.genomes = {}
-        for row in self.samples:
+        for i, row in enumerate(self.samples):
             anchor = _field(row.get("anchor"))
             self.genomes[row["name"]] = Genome(
                 self, row["name"], _field(row.get("fasta")),
                 _field(row.get("gff")),
                 None if anchor is None else anchor == "True",
-                write=self.write_mode)
+                write=self.write_mode, id=int(_field(row.get("id")) or i))
         self.chrs = None
         if not self.write_mode:
             self._init_read()
@@ -461,9 +464,10 @@ class Genome:
     """One genome of the index; anchored genomes own an anchor/<name>/ dir."""
 
     def __init__(self, idx, name, fasta=None, gff=None, anchor=None,
-                 write=True):
+                 write=True, id=None):
         self.index = idx
         self.name = name
+        self.id = id           # samples.tsv's id (the genome's bit)
         self.fasta = fasta
         self.gff = gff
         self.is_fastq = fasta is not None and fasta.endswith(FASTQ_EXTS)
@@ -581,6 +585,23 @@ class Genome:
     def write_chrs(self):
         _write_tsv(self.chrs_fname, ["name", "id", "size", "gene_count"],
                    self.chrs)
+
+    @property
+    def sizes(self) -> dict:
+        """Chromosome -> size (positions, L - k + 1) in chrs.tsv order:
+        panagram_tpu's ``sizes`` Series as a dict."""
+        return {c[0]: c[2] for c in self.chrs}
+
+    def seq_len(self, name) -> int:
+        return self.sizes[name]
+
+    @property
+    def chrs_table(self) -> Table:
+        """chrs.tsv as the Table of panagram_tpu's read-mode ``chrs``: rows
+        labelled by chromosome name, columns id, size and gene_count."""
+        return Table(np.array([c[1:] for c in self.chrs],
+                              np.int64).reshape(-1, 3),
+                     [c[0] for c in self.chrs], ["id", "size", "gene_count"])
 
     def _anchor_chunk(self) -> int:
         """Pow2 chunk ladder: the smallest power of two holding the largest
@@ -851,7 +872,7 @@ class Genome:
         _write_tsv(self.chr_genes_fname, ["chr"] + list(range(N + 1)),
                    [[c] + [int(v) for v in h] for c, h in sums.items()])
 
-    def run_annotate(self, gff_file=None, nogene=False, device="cpu"):
+    def run_annotate(self, gff_file=None, nogene=False, device="cuda"):
         """(Re-)annotate from the existing bitmap: panagram_tpu's
         Genome.run_annotate.  Each chromosome's genes are counted over one
         read of its bitmap rows [first gene start, min(size, last gene
@@ -939,7 +960,6 @@ class Genome:
         row per step (panagram_tpu's bitmaps, sizes and offsets).  Queries
         take _query_lock: a reader keeps a position, and queries may come
         from several threads."""
-        self.sizes = {c[0]: c[2] for c in self.chrs}
         self.offsets = {}
         for step in self.steps:
             base, first = 0, {}
@@ -991,7 +1011,7 @@ class Genome:
         if self.bitmaps is None:
             self._open_bitmaps()
         start = 0 if start is None else start
-        end = self.sizes[name] if end is None else end
+        end = self.seq_len(name) if end is None else end
         stored = max((s for s in self.steps if step % s == 0), default=1)
         row_base = self.offsets[stored][name] + start // stored
         n_rows = (end - 1 - start) // stored + 1

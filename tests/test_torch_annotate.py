@@ -186,6 +186,34 @@ def test_query_and_bins_match_panagram_tpu(anno):
     port.close()
 
 
+def test_public_entry_points_default_to_the_card():
+    """build_index, build_index_distributed and Genome.run_annotate run on
+    the card unless the caller asks for the CPU."""
+    import inspect
+
+    from panagram_tpu_torch.index import Genome
+    from panagram_tpu_torch.parallel.distributed import build_index_distributed
+
+    for fn in (build_index, build_index_distributed, Genome.run_annotate):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+def test_run_annotate_in_process(anno, tmp_path):
+    """Genome.run_annotate called in process (device="cpu") writes what
+    panagram_tpu's writes."""
+    gff = tmp_path / "new.gff"
+    gff.write_text(NEW_GFF)
+    for d in ("port", "jax"):
+        shutil.copytree(anno["tmp"] / "port", tmp_path / d)
+    idx = PortIndex(str(tmp_path / "port"))
+    idx["g2"].run_annotate(str(gff), device="cpu")
+    idx.close()
+    ref = JaxIndex(str(tmp_path / "jax"))
+    ref["g2"].run_annotate(str(gff))
+    ref.close()
+    assert_same_trees(tmp_path / "port", tmp_path / "jax")
+
+
 def test_annotate_cli_matches_run_annotate(anno, tmp_path):
     """`annotate <index> g2 <gff>` through the port's CLI against
     panagram_tpu's Genome.run_annotate on a copy of the same index."""

@@ -245,6 +245,29 @@ def test_query_genes_and_anno_values(trees):
     idx.close()
 
 
+def test_read_api_members(opened):
+    """Genome.sizes (chrs.tsv order), seq_len, chrs_table (panagram_tpu's
+    read-mode chrs) and id; Index.genomes, conf and lowres_step."""
+    port, ref, _ = opened
+    assert list(port.genomes) == list(ref.genomes)
+    assert port.lowres_step == ref.lowres_step == port.conf.lowres_step \
+        == ref.conf.lowres_step
+    assert port.conf.max_view_chrs == ref.conf.max_view_chrs
+    for g in ref.genomes:
+        p, r = port.genomes[g], ref.genomes[g]
+        assert p.id == r.id
+        if r.chrs is None:
+            assert p.chrs is None
+            continue
+        assert list(p.sizes.items()) == [(c, int(s))
+                                          for c, s in r.sizes.items()]
+        for c in r.sizes.index:
+            assert p.seq_len(c) == r.seq_len(c)
+        assert_table(p.chrs_table, r.chrs)
+    with pytest.raises(KeyError):
+        port.genomes[ref.anchor_genomes[0]].seq_len("chrX")
+
+
 GENOME_TABLES = ["bitsum_bins", "bitsum_chrs", "bitsum_total", "bitfreq_bins",
                  "bitfreq_chrs", "bitsum_genes", "bitfreq_genes",
                  "total_paircounts", "chrom_umaps", "genome_umap"]
@@ -460,6 +483,35 @@ def test_read_path_imports_no_jax_pandas(trees, tmp_path):
         for r in idx.query_bitmap("g1", "chr1", 100, 140).to_numpy())
     idx.close()
     assert res.stdout == want
+
+
+def test_port_imports_no_jax_pandas_yaml(tmp_path):
+    """No module of the port, nor chip_smoke.py, imports jax, panagram_tpu,
+    pandas or yaml, at any depth; matplotlib only inside a function."""
+    import ast
+
+    paths = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(root, f)
+        for root, _, files in os.walk(os.path.join(REPO, "panagram_tpu_torch"))
+        for f in files if f.endswith(".py")]
+    assert len(paths) > 40
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        top = {id(n) for n in tree.body}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in ("jax", "jaxlib", "panagram_tpu", "pandas",
+                                    "yaml"), (path, name)
+                if root == "matplotlib":
+                    assert id(node) not in top, (path, name)
 
 
 def test_query_across_bgzf_blocks(tmp_path):
