@@ -81,13 +81,35 @@
    raise naming the card count.  Prints each build's wall, its dict and
    anchor stage walls, and the rank's peak device memory beside the
    one-device build's.
-10. Layout phase: ~1e8 mixed keys drawn on the card (W=1) laid out by
+10. The api phase, on the slice's index: every name the package, ops, io
+   and parallel export resolves and ``panagram_tpu_torch.Index(prefix)``
+   opens the tree.  ops.anchor_lookup of g0's first 2^22 canonical
+   k-mers against pandict.npz, then mask_popcount, genome_column_sums,
+   masks_to_bytes of the whole rows and occupancy_histogram, with the
+   kernel counts set to 0 just before and read just after: each op of a
+   kernel must launch it once (fused_popcount_colsums twice,
+   masks_to_bytes once, no other).  The rows must equal those of one
+   ops.anchor.anchor_chunk of the same bases (bytes, popcounts, column
+   sums) and the numpy oracle's over the first 2^17 positions; each op its
+   plain version; the histogram the CPU's.  anchor_lookup's and
+   anchor_chunk's warm times per chunk are printed.  The host anchorer
+   (native/anchor_cpu, built with g++ from the checkout) over
+   pandict.npz's canonical keys anchors g0 whole at API_THREADS threads
+   and at os.cpu_count(); its bytes and popcounts must equal bitmap.1.gz.
+   Prints its build seconds, anchor seconds and k-mers/s.  The six
+   scripts of panagram_tpu_torch/scripts run in process on the index,
+   each output checked (pairwise_matrix on the card against
+   pairwise_shared on the CPU; write_umaps must rewrite g0's CSVs
+   byte for byte; plot_umaps renders where matplotlib imports and
+   otherwise must raise naming it), and make_bins_bits again through
+   ``python -m``; their walls are printed.
+11. Layout phase: ~1e8 mixed keys drawn on the card (W=1) laid out by
    BucketedDict.build_device, the single-pass route, the chunked route and
    the single-pass route of the keys shuffled; the tables must be equal and
    a sample of keys must find their masks.  Each of these routes and the
    range-sharded layout (low-bit buckets, "bucket" mode) must hold its
    transients within lookup.layout_bytes and above MODEL_FLOOR of it.
-11. Prints one line per kernel (bytes, bound, share, launches
+12. Prints one line per kernel (bytes, bound, share, launches
    of the slice, library call), the kernels JSON line, the card line, and
    last {"ok": true, "device": {...}}.  Any failed check raises, so the script
    exits non-zero without that line; so does a machine without CUDA.
@@ -95,6 +117,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import filecmp
 import io
 import json
@@ -104,6 +127,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -115,6 +139,7 @@ from panagram_tpu_torch.tools.kernel_times import (
     chunk_inputs,
     chunk_times,
     cold_ms,
+    host_syncs,
     kernel_cases,
     one_call_ms,
     warm_ms,
@@ -1489,6 +1514,233 @@ def mesh_phase(work: str, card: str, dev, slice_peak: int) -> dict:
     return out
 
 
+API_THREADS = 4           # api phase: the host anchorer's first thread count
+
+
+def _run_script(main, argv) -> tuple[str, float]:
+    """(stdout, wall seconds) of a script's main(argv) in process."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    return out.getvalue(), time.perf_counter() - t0
+
+
+def api_phase(work: str, seqs: dict, card: str, dev):
+    """The public Python API and the user scripts on the slice's index: the
+    package exports, ops.anchor_lookup on the slice's dictionary against the
+    chunk's route and the oracle, the popcount ops and masks_to_bytes of
+    whole rows against their plain versions (kernel launches counted from 0
+    around them), occupancy_histogram against the CPU, the host anchorer
+    on g0 against its bitmap, and the six scripts in process (one also
+    through python -m)."""
+    import panagram_tpu_torch
+    from panagram_tpu_torch import io as port_io
+    from panagram_tpu_torch import ops, parallel
+    from panagram_tpu_torch.io.bgzf import decompress_file
+    from panagram_tpu_torch.native.anchor_cpu import CpuAnchorer
+    from panagram_tpu_torch.ops import anchor, kernels
+    from panagram_tpu_torch.ops.codec import from_u64_np, pack_bases_np
+    from panagram_tpu_torch.ops.dictionary import PanKmerDict
+    from panagram_tpu_torch.ops.lookup import BucketedDict
+    from panagram_tpu_torch.ops.ref_impl import anchor_np
+    from panagram_tpu_torch.scripts import (
+        make_bins_bits,
+        pairwise_comp,
+        pairwise_matrix,
+        plot_umaps,
+        query_index,
+        write_umaps,
+    )
+
+    prefix = os.path.join(work, "idx")
+    for pkg in (panagram_tpu_torch, ops, port_io, parallel):
+        for name in pkg.__all__:
+            getattr(pkg, name)
+    t0 = time.perf_counter()
+    idx = panagram_tpu_torch.Index(prefix)
+    opened = time.perf_counter() - t0
+    if list(idx.anchor_genomes) != list(ANCHORS) or idx.ngenomes != GENOMES:
+        raise AssertionError(f"Index({prefix!r}): {idx.anchor_genomes}")
+    idx.close()
+    print(f"api phase [{card}]: every exported name resolves; "
+          f"panagram_tpu_torch.Index(prefix) opened in {opened:.4f} s",
+          flush=True)
+
+    N, nbytes = GENOMES, (GENOMES + 7) // 8
+    pan = PanKmerDict.load(os.path.join(prefix, "kmc", "pandict.npz"))
+    if pan.key_space != "canon":
+        raise AssertionError(f"pandict.npz key space {pan.key_space}")
+    keys = from_u64_np(pan.keys, dev)
+    masks = torch.from_numpy(pan.masks.view(np.int32)).to(dev)
+    codes = seqs["g0"][:CHUNK + K - 1]
+    canon, _ = ops.pack_kmers(torch.from_numpy(codes).to(dev), K)
+    P = canon.shape[0]
+    binlen, nbins = 100_000, -(-P // 100_000)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rows = ops.anchor_lookup(canon, keys, masks)
+    popc = ops.mask_popcount(rows)
+    sums = ops.genome_column_sums(rows, N)
+    by = ops.masks_to_bytes(rows)
+    hist = ops.occupancy_histogram(popc, binlen, nbins, N)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    want = {"fused_popcount_colsums": 2, "masks_to_bytes": 1}
+    if launches != {n: want.get(n, 0) for n in launches}:
+        raise AssertionError(f"api ops launched {launches}, want {want}")
+    print(f"  ops on g0's first {P} positions ({len(pan)} keys, W="
+          f"{pan.nwords}): launches {launches}", flush=True)
+
+    bd = BucketedDict.build_device(pan.keys, pan.masks, N, K, dev)
+    packed, nmask, L = pack_bases_np(codes)
+    packed, nmask = torch.from_numpy(packed).to(dev), torch.from_numpy(nmask).to(dev)
+
+    def chunk():
+        return anchor.anchor_chunk(packed, nmask, L, K, bd.table, bd.nbits,
+                                   bd.cap, bd.nwords, nbytes)
+
+    cby, cpopc, ccols = chunk()
+    if not (torch.equal(by[:, :nbytes], cby[:P])
+            and torch.equal(popc, cpopc[:P])
+            and torch.equal(sums, ccols[:N].to(torch.int64))
+            and not bool((by[:, nbytes:] != 0).any())):
+        raise AssertionError("anchor_lookup's rows differ from anchor_chunk's")
+    oracle = anchor_np(codes[:ORACLE_POSITIONS + K - 1], K, pan.keys,
+                       pan.masks)
+    if not np.array_equal(rows[:ORACLE_POSITIONS].cpu().numpy().view(
+            np.uint32), oracle):
+        raise AssertionError("anchor_lookup differs from the numpy oracle")
+    plain_popc, plain_sums = kernels.fused_popcount_colsums_plain(rows, N)
+    checks = {
+        "mask_popcount": torch.equal(popc, plain_popc),
+        "genome_column_sums": torch.equal(sums, plain_sums.to(torch.int64)),
+        "masks_to_bytes": torch.equal(
+            by, kernels.masks_to_bytes_plain(rows, 4 * pan.nwords)),
+        "occupancy_histogram": torch.equal(hist.cpu(), ops.occupancy_histogram(
+            popc.cpu(), binlen, nbins, N)),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"api ops against their plain versions: {checks}")
+    lookup_ms = warm_ms(lambda: ops.anchor_lookup(canon, keys, masks))
+    if host_syncs(chunk):
+        # where the chunk waits for the card: the op that raises under
+        # torch's sync debug mode
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            chunk()
+        except RuntimeError:
+            print("  anchor_chunk syncs here:\n" + "\n".join(
+                traceback.format_exc().strip().splitlines()[-8:]), flush=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        free, total = torch.cuda.mem_get_info()
+        print(f"  device memory: {free / 2**30:.3f} of {total / 2**30:.3f} "
+              f"GiB free, {torch.cuda.memory_reserved() / 2**30:.3f} GiB "
+              "reserved by torch", flush=True)
+        chunk_ms, timer = one_call_ms(chunk), "one call between events"
+    else:
+        # 20 calls, as chunk_times queues: 50 chunks' ~1,250 launches
+        # overflow the stream's queue behind the blocker
+        chunk_ms, timer = warm_ms(chunk, launches=20), "warm"
+    print(f"  anchor_lookup rows = anchor_chunk's and the oracle's (first "
+          f"{ORACLE_POSITIONS}); {', '.join(checks)} = their plain versions "
+          f"[{card}]: anchor_lookup {lookup_ms:.4f} ms warm per {P} "
+          f"positions (searchsorted over {len(pan)} keys), anchor_chunk "
+          f"{chunk_ms:.4f} ms ({timer}) on the same chunk", flush=True)
+    del rows, popc, sums, by, hist, cby, cpopc, ccols, bd, keys, masks, canon
+
+    d0 = os.path.join(prefix, "anchor", "g0")
+    bitmap = np.frombuffer(decompress_file(os.path.join(d0, "bitmap.1.gz")),
+                           np.uint8).reshape(-1, nbytes)
+    bitmap_popc = np.unpackbits(bitmap, axis=1, bitorder="little").sum(
+        axis=1, dtype=np.int32)
+    t0 = time.perf_counter()
+    ca = CpuAnchorer(pan.keys, pan.masks)
+    build_s = time.perf_counter() - t0
+    cores = os.cpu_count()
+    print(f"  CpuAnchorer [{card}; host of {cores} cores]: built over "
+          f"{len(pan)} keys in {build_s:.3f} s", flush=True)
+    for threads in (API_THREADS, cores):
+        t0 = time.perf_counter()
+        got_by, got_popc = ca.anchor(seqs["g0"], K, nbytes, threads=threads)
+        secs = time.perf_counter() - t0
+        if not (np.array_equal(got_by, bitmap)
+                and np.array_equal(got_popc, bitmap_popc)):
+            raise AssertionError(f"CpuAnchorer at {threads} threads differs "
+                                 "from g0's bitmap.1.gz")
+        print(f"    {threads} threads: g0 ({len(bitmap)} positions) in "
+              f"{secs:.3f} s, {len(bitmap) / secs:.4g} k-mers/s, equal to "
+              "bitmap.1.gz", flush=True)
+    del ca, got_by, got_popc, bitmap
+
+    walls = {}
+    out, walls["query_index bit"] = _run_script(
+        query_index.main, [prefix, "g0", "bit"])
+    mean = float(out.split("occupancy mean:")[1])
+    if not (out.startswith("chr1 occupancy mean: ")
+            and abs(mean - bitmap_popc[::100].mean()) < 1e-9):
+        raise AssertionError(f"query_index bit printed {out!r}")
+    out, walls["make_bins_bits"] = _run_script(make_bins_bits.main,
+                                               [prefix, "g0"])
+    lines = out.splitlines()
+    if len(lines) != 1 + -(-len(bitmap_popc) // 200_000) or int(
+            lines[1].split("\t")[5]) != 2000:
+        raise AssertionError(f"make_bins_bits printed {lines[:3]}")
+    out, walls["pairwise_comp"] = _run_script(pairwise_comp.main,
+                                              ["g0", prefix])
+    if len(out.splitlines()) != N or not out.startswith(
+            f"g0,{int((bitmap_popc[::100] > 0).sum())},100.0\n"):
+        raise AssertionError(f"pairwise_comp printed {out[:200]!r}")
+    out, walls["pairwise_matrix"] = _run_script(pairwise_matrix.main, [prefix])
+    shared = np.array([[int(x) for x in line.split("\t")[1:]]
+                       for line in out.splitlines()[1:]])
+    if not np.array_equal(shared, pan.pairwise_shared(device="cpu")):
+        raise AssertionError("pairwise_matrix on the card differs from "
+                             "pairwise_shared on the CPU")
+    csvs = {f: open(os.path.join(d0, f), "rb").read()
+            for f in ("chrom_umaps.csv", "genome_umap.csv")}
+    out, walls["write_umaps"] = _run_script(write_umaps.main, [prefix, "g0"])
+    if out != "embedding g0 ...\n" or any(
+            open(os.path.join(d0, f), "rb").read() != b
+            for f, b in csvs.items()):
+        raise AssertionError("write_umaps did not rewrite g0's CSVs as the "
+                             "build wrote them")
+    plots = os.path.join(work, "umap_plots")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        t0 = time.perf_counter()
+        try:
+            _run_script(plot_umaps.main, [prefix, "g0", "ALL", "--out", plots])
+        except ImportError as e:
+            if "matplotlib" not in str(e):
+                raise
+            walls["plot_umaps (to its raise)"] = time.perf_counter() - t0
+            print(f"  plot_umaps: matplotlib absent, raises naming it: {e}",
+                  flush=True)
+        else:
+            raise AssertionError("plot_umaps ran without matplotlib")
+    else:
+        out, walls["plot_umaps"] = _run_script(
+            plot_umaps.main, [prefix, "g0", "ALL", "--out", plots])
+        if len(os.listdir(plots)) != 3:
+            raise AssertionError(f"plot_umaps wrote {os.listdir(plots)}")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m",
+                          "panagram_tpu_torch.scripts.make_bins_bits", prefix,
+                          "g0"], stdout=subprocess.PIPE, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                             os.path.abspath(__file__))))
+    walls["python -m make_bins_bits"] = time.perf_counter() - t0
+    if res.returncode != 0 or res.stdout.splitlines() != lines:
+        raise AssertionError("python -m panagram_tpu_torch.scripts."
+                             "make_bins_bits differs from its run in process")
+    print(f"  scripts on the slice's index, wall s [{card}]: " + ", ".join(
+        f"{n} {w:.3f}" for n, w in walls.items()), flush=True)
+    return launches
+
+
 def layout_phase(dev, card: str):
     """~1e8 mixed keys (W=1) laid out through build_device, the single-pass
     route and the chunked route; the tables must be equal."""
@@ -1623,6 +1875,7 @@ def main():
         view_phase(work, card, g0_bits, g0_oracle)
         intros_phase(work, card)
         mesh_phase(work, card, dev, slice_peak)
+        api_phase(work, seqs, card, dev)
     launches["mosaic_probe"] = mosaic_launches
     layout_phase(dev, card)
 

@@ -234,20 +234,48 @@ def _run_intros(args):
     intros_main(args)
 
 
+def _column_kind(col: np.ndarray) -> str:
+    """The pandas dtype a column of a Table would have: "int", "float" or
+    "str" (object)."""
+    if col.dtype.kind in "iu":
+        return "int"
+    if col.dtype.kind == "f":
+        return "float"
+    if all(isinstance(v, (int, np.integer)) for v in col):
+        return "int"
+    if all(isinstance(v, (int, float, np.integer, np.floating)) for v in col):
+        return "float"
+    return "str"
+
+
+def _float_cells(values) -> list:
+    """pandas' FloatArrayFormatter at its default precision for values of
+    magnitude in [1e-6, 1e6] or 0: six decimals, then trailing zeros
+    trimmed from all numbers alike, at least one kept; NaN as "NaN"."""
+    cells = ["NaN" if v != v else f"{v: .{PRECISION}f}" for v in values]
+    nums = [i for i, c in enumerate(cells) if c != "NaN"]
+    while nums and all(cells[i].endswith("0") for i in nums):
+        for i in nums:
+            cells[i] = cells[i][:-1]
+    return [c + "0" if c.endswith(".") else c for c in cells]
+
+
 # pandas' display defaults (display.max_rows, display.min_rows,
-# display.max_seq_items)
-MAX_ROWS, MIN_ROWS, MAX_SEQ_ITEMS = 60, 10, 100
+# display.max_seq_items, display.precision)
+MAX_ROWS, MIN_ROWS, MAX_SEQ_ITEMS, PRECISION = 60, 10, 100, 6
 
 
 def frame_text(t, columns_name=None) -> str:
     """The text ``print(DataFrame)`` gives in a plain Python interpreter for
-    a query_bitmap table (rows labelled by position, one uint8 column per
-    genome; `columns_name` the name of the column labels, printed above the
-    row labels), pandas' defaults in force: more than MAX_ROWS rows show the
-    first and last MIN_ROWS // 2; columns are dropped from the middle until
-    the lines fit the terminal's width (shutil.get_terminal_size: $COLUMNS,
-    the terminal, else 80) and a "..." column stands for them; when
-    anything is dropped the dimensions follow."""
+    a Table (rows labelled by its index; `columns_name` the name of the
+    column labels, printed above the row labels), pandas' defaults in
+    force: int columns as pandas prints int64, str columns as object,
+    float columns as float64 (see _float_cells); more than MAX_ROWS rows
+    show the first and last MIN_ROWS // 2; columns are dropped from the
+    middle until the lines fit the terminal's width
+    (shutil.get_terminal_size: $COLUMNS, the terminal, else 80) and a "..."
+    column stands for them; when anything is dropped the dimensions
+    follow."""
     values, names = t.values, [str(c) for c in t.columns]
     nrows, ncols = values.shape
     width = shutil.get_terminal_size()[0]
@@ -265,6 +293,7 @@ def frame_text(t, columns_name=None) -> str:
     if nrows > MAX_ROWS:
         row_cut = MIN_ROWS // 2
         rows = rows[:row_cut] + rows[-row_cut:]
+    kinds = [_column_kind(values[:, c]) for c in range(ncols)]
     cols, col_cut = list(range(ncols)), None
 
     def cut_columns(fitted):
@@ -273,15 +302,23 @@ def frame_text(t, columns_name=None) -> str:
             col_cut = fitted // 2
             cols = cols[:col_cut] + cols[len(cols) - col_cut:]
 
+    def cells(c):
+        shown = values[rows, c]
+        if kinds[c] == "int":
+            return [f"{v: d}" for v in shown]
+        if kinds[c] == "float":
+            return _float_cells(shown)
+        return [f" {v}" for v in shown]
+
     def strcols():
         index = [str(t.index[r]) for r in rows]
         iw = max(map(len, index))
         out = [[columns_name or ""] + [s.ljust(iw) for s in index]]
         for c in cols:
-            head = " " + names[c]
-            w = max(len(head), 2)
-            out.append([head.rjust(w)]
-                       + [f"{v: d}".rjust(w) for v in values[rows, c]])
+            head = names[c] if kinds[c] == "str" else " " + names[c]
+            body = cells(c)
+            w = max(len(head), *map(len, body))
+            out.append([head.rjust(w)] + [v.rjust(w) for v in body])
         if col_cut is not None:
             out.insert(col_cut + 1, [" ..."] * (len(rows) + 1))
         if row_cut is not None:

@@ -23,7 +23,7 @@ def mash_distance(jaccard: float, k: int) -> float:
     return max(0.0, -np.log(2 * jaccard / (1 + jaccard)) / k)
 
 
-def write_genome_dist(pan_dict, names, out_path: str, device="cpu"):
+def write_genome_dist(pan_dict, names, out_path: str, device="cuda"):
     """pan_dict: PanKmerDict; names: genome names in id order; the shared
     counts are computed on `device`."""
     shared = pan_dict.pairwise_shared(device)

@@ -30,10 +30,13 @@ import numpy as np
 import torch
 
 from . import kernels
-from .codec import pack_bases_np
+from .codec import SENTINEL, flip64, pack_bases_np
 from .lookup import TILE_Q, bucket_query_sorted_pre
 
 PIPELINE_DEPTH = 2
+# rows per fused_popcount_colsums launch in genome_column_sums: its int32
+# column sums cannot wrap below 2^31 rows
+COLSUM_ROWS = (1 << 31) - 1
 
 
 def anchor_chunk(packed: torch.Tensor, nmask: torch.Tensor, L: int, k: int,
@@ -51,6 +54,61 @@ def anchor_chunk(packed: torch.Tensor, nmask: torch.Tensor, L: int, k: int,
     popc, colsums = kernels.fused_popcount_colsums(rows, 32 * nwords)
     by = kernels.masks_to_bytes(rows, nbytes)
     return by, popc, colsums
+
+
+def anchor_lookup(canon: torch.Tensor, keys: torch.Tensor,
+                  masks: torch.Tensor) -> torch.Tensor:
+    """The sorted-dictionary lookup of panagram_tpu.ops.anchor.anchor_lookup:
+    canonical k-mers int64 [P] (u64 bits) against keys int64 [D] sorted in
+    unsigned order (SENTINEL pads at the tail) with masks int32 [D, W] ->
+    mask rows int32 [P, W], a row of 0 where the k-mer is not a key or is
+    SENTINEL.  The search runs on flip64 of both sides, whose signed order
+    is the keys' unsigned order."""
+    P, W = canon.shape[0], masks.shape[1]
+    if keys.shape[0] == 0:
+        return masks.new_zeros(P, W)
+    idx = torch.searchsorted(flip64(keys), flip64(canon))
+    idx.clamp_(max=keys.shape[0] - 1)
+    hit = (keys[idx] == canon) & (canon != SENTINEL)
+    return torch.where(hit[:, None], masks[idx], 0)
+
+
+def mask_popcount(rows: torch.Tensor) -> torch.Tensor:
+    """Set bits of each mask row int32 [P, W] -> int32 [P], through the
+    fused_popcount_colsums kernel (no column sums)."""
+    return kernels.fused_popcount_colsums(rows, 0)[0]
+
+
+def genome_column_sums(rows: torch.Tensor, ngenomes: int) -> torch.Tensor:
+    """Rows with genome bit g set, for g < ngenomes: int64 [ngenomes],
+    through the fused_popcount_colsums kernel.  Inputs of COLSUM_ROWS rows
+    or more go in pieces whose int32 sums are added in int64."""
+    sums = torch.zeros(ngenomes, dtype=torch.int64, device=rows.device)
+    for s in range(0, rows.shape[0], COLSUM_ROWS):
+        sums += kernels.fused_popcount_colsums(rows[s:s + COLSUM_ROWS],
+                                               ngenomes)[1]
+    return sums
+
+
+def occupancy_histogram(popc: torch.Tensor, binlen: int, nbins: int,
+                        ngenomes: int) -> torch.Tensor:
+    """Per-bin occupancy histograms int32 [nbins, ngenomes + 1]: position p
+    of popc int32 [P] counts in bin p // binlen at its popcount; negative
+    entries (pads of -1) are ignored.  panagram_tpu's version drops or
+    misbins positions past nbins * binlen and popcounts above ngenomes; here
+    they raise ValueError."""
+    P = popc.shape[0]
+    if P > nbins * binlen:
+        raise ValueError(f"occupancy_histogram: {P} positions do not fit "
+                         f"{nbins} bins of {binlen}")
+    if P and int(popc.max()) > ngenomes:
+        raise ValueError(f"occupancy_histogram: a popcount of "
+                         f"{int(popc.max())} with {ngenomes} genomes")
+    cells = nbins * (ngenomes + 1)
+    bins = torch.arange(P, device=popc.device) // binlen
+    flat = torch.where(popc >= 0, bins * (ngenomes + 1) + popc, cells)
+    hist = torch.bincount(flat, minlength=cells + 1)[:cells]
+    return hist.to(torch.int32).reshape(nbins, ngenomes + 1)
 
 
 class _Slot:

@@ -126,7 +126,7 @@ def pack_kmers(codes: torch.Tensor, k: int):
     return torch.where(valid, canon, torch.full_like(canon, SENTINEL)), valid
 
 
-def canonical_kmers(codes, k: int, device="cpu"):
+def canonical_kmers(codes, k: int, device="cuda"):
     """numpy uint8 codes -> numpy (canon uint64 with invalid windows zeroed,
     valid bool), the convention of panagram_tpu.ops.codec.canonical_kmers."""
     check_k(k)

@@ -24,7 +24,7 @@ DEFAULT_CHUNK = 1 << 22  # positions per device chunk
 SPILL_CHUNKS = 4         # chunk sets held on the device before a spill
 
 
-def distinct_kmers_chunked(code_arrays, k: int, device="cpu",
+def distinct_kmers_chunked(code_arrays, k: int, device="cuda",
                            chunk: int = DEFAULT_CHUNK) -> np.ndarray:
     """Sorted distinct canonical k-mers (numpy uint64) over many sequences
     (a genome); the result of panagram_tpu.ops.count.distinct_kmers_chunked.
@@ -59,6 +59,13 @@ def distinct_kmers_chunked(code_arrays, k: int, device="cpu",
     return np.unique(np.concatenate(spilled))
 
 
+def distinct_kmers(codes, k: int, device="cuda") -> np.ndarray:
+    """Sorted distinct canonical k-mers (numpy uint64) of one sequence,
+    empty when it is shorter than k: panagram_tpu.ops.count.distinct_kmers,
+    through distinct_kmers_chunked."""
+    return distinct_kmers_chunked([np.asarray(codes, np.uint8)], k, device)
+
+
 def _counted_unique(keys: torch.Tensor, counts: torch.Tensor):
     """Sorted distinct keys and the summed counts of each."""
     uniq, inv = torch.unique(keys, sorted=True, return_inverse=True)
@@ -82,7 +89,7 @@ def _merge_counted(parts):
     return ks[starts], np.add.reduceat(cs, starts)
 
 
-def counted_kmers_chunked(code_arrays, k: int, device="cpu",
+def counted_kmers_chunked(code_arrays, k: int, device="cuda",
                           min_count: int = 2,
                           chunk: int = DEFAULT_CHUNK) -> np.ndarray:
     """Sorted distinct canonical k-mers (numpy uint64) that occur at least

@@ -140,7 +140,7 @@ class PanKmerDict:
         return cls(npz_member(path, "keys", mmap),
                    npz_member(path, "masks", mmap), ngenomes, k, key_space)
 
-    def pairwise_shared(self, device="cpu",
+    def pairwise_shared(self, device="cuda",
                         block: int = PAIRWISE_BLOCK) -> np.ndarray:
         """Genome x genome shared-distinct-kmer counts, int64 [N, N]: the
         sum over row blocks of bits^T @ bits, in float32 (exact, see
@@ -160,7 +160,7 @@ class PanKmerDict:
 
 def build_dictionary(genome_sets: list[np.ndarray], k: int,
                      ngenomes: int | None = None,
-                     device="cpu") -> PanKmerDict:
+                     device="cuda") -> PanKmerDict:
     """Merge per-genome sorted distinct key sets (numpy uint64; list order
     = genome id) into a PanKmerDict, on `device`."""
     N = ngenomes if ngenomes is not None else len(genome_sets)

@@ -359,11 +359,15 @@ def fused_popcount_colsums_plain(rows, ngenomes: int):
 # masks_to_bytes
 # ---------------------------------------------------------------------------
 
-def masks_to_bytes(rows: torch.Tensor, nbytes: int) -> torch.Tensor:
+def masks_to_bytes(rows: torch.Tensor, nbytes: int | None = None
+                   ) -> torch.Tensor:
     """rows int32 [P, W] -> uint8 [P, nbytes]: each row's words as
-    little-endian bytes, truncated to nbytes <= 4W."""
+    little-endian bytes, truncated to nbytes <= 4W (all 4W by default, as
+    panagram_tpu.ops.anchor.masks_to_bytes)."""
     _need(rows, torch.int32, 2, "masks_to_bytes rows")
     P, W = rows.shape
+    if nbytes is None:
+        nbytes = 4 * W
     if not 0 <= nbytes <= 4 * W:
         raise ValueError(f"masks_to_bytes: nbytes={nbytes}, W={W}")
     if not _on_card(rows):

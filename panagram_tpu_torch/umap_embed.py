@@ -89,9 +89,9 @@ def _randomized_svd(M, n_components: int, rng):
     return U[:, :n_components], s[:n_components], Vt[:n_components, :]
 
 
-def pca_fit_transform(X: np.ndarray, n_components: int) -> np.ndarray:
-    """PCA(n_components, random_state=42).fit_transform(X) of
-    scikit-learn 1.9, for a dense float64 X."""
+def pca_fit(X: np.ndarray, n_components: int):
+    """(fit_transform(X), explained_variance_ratio_) of scikit-learn 1.9's
+    PCA(n_components, random_state=42), for a dense float64 X."""
     from scipy import linalg
 
     X = np.asarray(X, dtype=np.float64)
@@ -102,23 +102,33 @@ def pca_fit_transform(X: np.ndarray, n_components: int) -> np.ndarray:
         C = X.T @ X
         C -= n_samples * np.reshape(mean, (-1, 1)) * np.reshape(mean, (1, -1))
         C /= n_samples - 1
-        _, eigenvecs = np.linalg.eigh(C)
+        eigenvals, eigenvecs = np.linalg.eigh(C)
+        variance = np.flip(eigenvals)
+        variance[variance < 0.0] = 0.0
         _, Vt = svd_flip_rows(None, np.flip(eigenvecs, axis=1).T)
         components = np.array(Vt[:n_components, :], copy=True)
         out = X @ components.T
         out -= np.reshape(mean, (1, -1)) @ components.T
-        return out
-    Xc = np.array(X, copy=True)
-    Xc -= mean
-    if solver == "full":
-        U, S, Vt = linalg.svd(Xc, full_matrices=False)
+        total = np.sum(variance)
     else:
-        U, S, Vt = _randomized_svd(Xc, n_components,
-                                   np.random.RandomState(RANDOM_STATE))
-    U, Vt = svd_flip_rows(U, Vt)
-    U = U[:, :n_components]
-    U *= S[:n_components]
-    return U
+        Xc = np.array(X, copy=True)
+        Xc -= mean
+        if solver == "full":
+            U, S, Vt = linalg.svd(Xc, full_matrices=False)
+        else:
+            U, S, Vt = _randomized_svd(Xc, n_components,
+                                       np.random.RandomState(RANDOM_STATE))
+        variance = S**2 / (n_samples - 1)
+        # the randomized solver has the leading components only: its ratio
+        # is over the data's total variance
+        total = np.sum(variance) if solver == "full" \
+            else np.sum(Xc**2) / (n_samples - 1)
+        U, Vt = svd_flip_rows(U, Vt)
+        out = U[:, :n_components]
+        out *= S[:n_components]
+    # constant data: 0 / 0, NaN ratios (scikit-learn warns)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return out, (variance / total)[:n_components]
 
 
 def dbscan_labels(X: np.ndarray, eps: float, min_samples: int) -> np.ndarray:
@@ -154,7 +164,7 @@ def _embed(data: np.ndarray) -> np.ndarray | None:
         return None
     try:
         n_comp = min(2, data.shape[1], len(data))
-        emb = pca_fit_transform(data, n_comp)
+        emb = pca_fit(data, n_comp)[0]
         if emb.shape[1] < 2:
             emb = np.pad(emb, ((0, 0), (0, 2 - emb.shape[1])))
         return emb

@@ -187,13 +187,50 @@ def test_query_and_bins_match_panagram_tpu(anno):
 
 
 def test_public_entry_points_default_to_the_card():
-    """build_index, build_index_distributed and Genome.run_annotate run on
-    the card unless the caller asks for the CPU."""
+    """Every public function and method of the package with a `device`
+    parameter runs on the card unless the caller asks for the CPU: no
+    default of "cpu" anywhere, "cuda" at the entry points named here."""
+    import importlib
     import inspect
+    import pkgutil
 
+    import panagram_tpu_torch
     from panagram_tpu_torch.index import Genome
     from panagram_tpu_torch.parallel.distributed import build_index_distributed
 
+    defaults = {}
+    for info in pkgutil.walk_packages(panagram_tpu_torch.__path__,
+                                      "panagram_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) \
+                    != mod.__name__:
+                continue
+            members = [(name, obj)]
+            if inspect.isclass(obj):
+                members += [(f"{name}.{m}", getattr(v, "__func__", v))
+                            for m, v in vars(obj).items()
+                            if not m.startswith("_")]
+            for qual, fn in members:
+                if not callable(fn):
+                    continue
+                try:
+                    params = inspect.signature(fn).parameters
+                except (TypeError, ValueError):
+                    continue
+                if "device" in params:
+                    defaults[f"{mod.__name__}.{qual}"] = \
+                        params["device"].default
+    assert not [q for q, d in defaults.items() if d == "cpu"], defaults
+    for qual in ("ops.codec.canonical_kmers", "ops.count.distinct_kmers",
+                 "ops.count.distinct_kmers_chunked",
+                 "ops.count.counted_kmers_chunked",
+                 "ops.dictionary.build_dictionary",
+                 "ops.dictionary.PanKmerDict.pairwise_shared",
+                 "distances.write_genome_dist", "index.Genome.run_annotate",
+                 "pipeline.build_index",
+                 "parallel.distributed.build_index_distributed"):
+        assert defaults["panagram_tpu_torch." + qual] == "cuda", qual
     for fn in (build_index, build_index_distributed, Genome.run_annotate):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 

@@ -76,7 +76,7 @@ def test_counted_kmers_merges_many_spills():
                                       "cpu", chunk=1 << 10)
     want = jax_counted((seq_to_codes(r) for r in reads), k, chunk=1 << 10)
     assert np.array_equal(got, want)
-    assert count.counted_kmers_chunked(iter([]), k).size == 0
+    assert count.counted_kmers_chunked(iter([]), k, "cpu").size == 0
 
 
 @pytest.mark.parametrize("gz", [False, True])

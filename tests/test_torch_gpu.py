@@ -21,8 +21,15 @@ import torch
 from panagram_tpu_torch import index as port_index
 from panagram_tpu_torch.io.fasta import seq_to_codes
 from panagram_tpu_torch.ops import count, devdict, dictionary, kernels, lookup
+from panagram_tpu_torch.ops import anchor as anchor_ops
 from panagram_tpu_torch.ops.anchor import anchor_chunk
-from panagram_tpu_torch.ops.codec import pack_bases_np, pack_kmers, u64_np
+from panagram_tpu_torch.ops.codec import (
+    mix64,
+    pack_bases_np,
+    pack_kmers,
+    split64,
+    u64_np,
+)
 from panagram_tpu_torch.ops.lookup import (
     TILE_Q,
     BucketedDict,
@@ -687,3 +694,82 @@ def test_annotate_occupancy_kernel(cuda, ngenomes):
     assert np.array_equal(got, port_index.bitmap_occupancy(rows, ngenomes,
                                                            "cpu"))
     assert np.array_equal(got, bits.sum(axis=1))
+
+
+def test_anchor_lookup_matches_the_bucket_route(cuda):
+    """The sorted-dictionary lookup (searchsorted on the card) against the
+    bucket table's gather route on a 2^20-key table, SENTINEL-padded."""
+    rng = np.random.default_rng(20)
+    L = (1 << 20) + K - 1
+    codes = _chunk(rng, L)
+    keys, masks = _dict_for(rng, codes, 30)
+    assert len(keys) > 1 << 19
+    bd = BucketedDict.build(keys, masks, 30, K).to(cuda)
+    pad = np.full(1000, np.uint64(0xFFFFFFFFFFFFFFFF))
+    keys_t = torch.from_numpy(np.concatenate([keys, pad]).view(np.int64))
+    masks_t = torch.from_numpy(np.concatenate(
+        [masks, np.ones((1000, masks.shape[1]), np.uint32)]).view(np.int32))
+    canon, _ = pack_kmers(torch.from_numpy(codes).to(cuda), K)
+    got = anchor_ops.anchor_lookup(canon, keys_t.to(cuda), masks_t.to(cuda))
+    hi, lo = split64(mix64(canon))
+    want = bucket_query(hi, lo, bd.table, bd.nbits, bd.cap, bd.nwords)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy().view(np.uint32),
+                          anchor_np(codes, K, keys, masks))
+
+
+@pytest.mark.parametrize("W,N", [(1, 31), (2, 37), (4, 101)])
+def test_popcount_ops_and_masks_to_bytes_launch_the_kernels(cuda, monkeypatch,
+                                                            W, N):
+    """ops.mask_popcount, ops.genome_column_sums and ops.masks_to_bytes of
+    whole rows: one launch each on the card, equal to the plain versions;
+    genome_column_sums in pieces above COLSUM_ROWS rows."""
+    rng = np.random.default_rng(W)
+    rows = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (300_001, W),
+                                         dtype=np.int64).astype(np.int32))
+    rows[:, -1] &= (1 << (N - 32 * (W - 1))) - 1
+    dev_rows = rows.to(cuda)
+    calls = (("fused_popcount_colsums", anchor_ops.mask_popcount, ()),
+             ("fused_popcount_colsums", anchor_ops.genome_column_sums, (N,)),
+             ("masks_to_bytes", kernels.masks_to_bytes, ()))
+    for name, fn, args in calls:
+        before = kernels.launches[name]
+        got = fn(dev_rows, *args)
+        torch.cuda.synchronize()
+        assert kernels.launches[name] == before + 1, fn
+        assert torch.equal(got.cpu(), fn(rows, *args)), fn
+    assert kernels.masks_to_bytes(dev_rows).shape == (300_001, 4 * W)
+    monkeypatch.setattr(anchor_ops, "COLSUM_ROWS", 100_000)
+    before = kernels.launches["fused_popcount_colsums"]
+    got = anchor_ops.genome_column_sums(dev_rows, N)
+    assert kernels.launches["fused_popcount_colsums"] == before + 4
+    assert torch.equal(got.cpu(), anchor_ops.genome_column_sums(rows, N))
+
+
+def test_cpu_anchorer_matches_a_card_build(cuda, tmp_path):
+    """The host anchorer, fed the build's canonical pandict.npz, writes the
+    bitmap rows and popcounts the card wrote, at 1, 4 and all threads."""
+    from panagram_tpu_torch.io.bgzf import decompress_file
+    from panagram_tpu_torch.io.fasta import iter_fasta
+    from panagram_tpu_torch.native.anchor_cpu import CpuAnchorer
+
+    samples = _write_genomes(tmp_path, np.random.default_rng(4), bp=300_000)
+    build_index(str(samples), prefix=str(tmp_path / "idx"), k=K, device=cuda,
+                anchor_genomes=["g0"])
+    pan = dictionary.PanKmerDict.load(str(tmp_path / "idx" / "kmc"
+                                          / "pandict.npz"))
+    assert pan.key_space == "canon"
+    nbytes = (pan.ngenomes + 7) // 8
+    want = np.frombuffer(decompress_file(str(
+        tmp_path / "idx" / "anchor" / "g0" / "bitmap.1.gz")),
+        np.uint8).reshape(-1, nbytes)
+    ca = CpuAnchorer(pan.keys, pan.masks)
+    codes = [seq_to_codes(s) for _, s in iter_fasta(str(tmp_path / "g0.fa"))]
+    for threads in (1, 4, None):
+        got = [ca.anchor(c, K, nbytes, threads=threads) for c in codes]
+        by = np.concatenate([g[0] for g in got])
+        assert np.array_equal(by, want), threads
+        bits = np.unpackbits(want, axis=1, bitorder="little")
+        assert np.array_equal(np.concatenate([g[1] for g in got]),
+                              bits.sum(axis=1))

@@ -64,8 +64,9 @@ def _inputs():
     seqs80 = [random_seq(rng, 700, n_frac=0.01) for _ in range(80)]
     g80 = seqs80[3] + random_seq(rng, 150, n_frac=0.1)
     sets5, sets12 = _sets(seqs5), _sets(seqs12)
-    d5, d12 = build_dictionary(sets5, K), build_dictionary(sets12, K)
-    d80 = build_dictionary(_sets(seqs80), K)
+    d5 = build_dictionary(sets5, K, device="cpu")
+    d12 = build_dictionary(sets12, K, device="cpu")
+    d80 = build_dictionary(_sets(seqs80), K, device="cpu")
     o5 = np.argsort(mix64_np(d5.keys))
     cases = {
         4: {"n5": dict(kind="range", ngenomes=5, sets=sets5, dict=d5,

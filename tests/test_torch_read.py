@@ -495,6 +495,11 @@ def test_port_imports_no_jax_pandas_yaml(tmp_path):
         for root, _, files in os.walk(os.path.join(REPO, "panagram_tpu_torch"))
         for f in files if f.endswith(".py")]
     assert len(paths) > 40
+    for new in ("native/anchor_cpu.py", "scripts/query_index.py",
+                "scripts/make_bins_bits.py", "scripts/pairwise_comp.py",
+                "scripts/pairwise_matrix.py", "scripts/write_umaps.py",
+                "scripts/plot_umaps.py"):
+        assert os.path.join(REPO, "panagram_tpu_torch", new) in paths, new
     for path in paths:
         with open(path) as f:
             tree = ast.parse(f.read())
@@ -512,6 +517,18 @@ def test_port_imports_no_jax_pandas_yaml(tmp_path):
                                     "yaml"), (path, name)
                 if root == "matplotlib":
                     assert id(node) not in top, (path, name)
+    # the scripts and the host anchorer import with those blocked
+    code = ("import sys\n"
+            "for m in ('jax', 'pandas', 'yaml', 'panagram_tpu', 'matplotlib'):"
+            " sys.modules[m] = None\n"
+            "import panagram_tpu_torch, panagram_tpu_torch.native.anchor_cpu\n"
+            "from panagram_tpu_torch.scripts import (make_bins_bits, "
+            "pairwise_comp, pairwise_matrix, plot_umaps, query_index, "
+            "write_umaps)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
 
 
 def test_query_across_bgzf_blocks(tmp_path):
