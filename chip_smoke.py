@@ -18,7 +18,7 @@
    work only, for which the data sheet names no peak, and none needs more
    time for it than for its bytes.  The share of the bound is bound / cold
    time.  masks_to_bytes is timed beside the one torch call that computes
-   it (library_masks_to_bytes).  Then one whole ops.anchor.anchor_chunk on
+   it (library_masks_to_bytes).  Then one whole ops.anchor.anchor_chunk_fast on
    the same inputs: it must make no host synchronisation (torch's sync
    debug mode set to "error" around it), and its warm and cold times are
    printed beside the sums of its four kernels as a line of its own,
@@ -89,10 +89,24 @@
    kernel counts set to 0 just before and read just after: each op of a
    kernel must launch it once (fused_popcount_colsums twice,
    masks_to_bytes once, no other).  The rows must equal those of one
-   ops.anchor.anchor_chunk of the same bases (bytes, popcounts, column
-   sums) and the numpy oracle's over the first 2^17 positions; each op its
-   plain version; the histogram the CPU's.  anchor_lookup's and
-   anchor_chunk's warm times per chunk are printed.  The host anchorer
+   ops.anchor.anchor_chunk_fast of the same bases (bytes, popcounts, column
+   sums; its table laid out by BucketedDict.build_device called
+   positionally in panagram_tpu's order, on the card by default) and the
+   numpy oracle's over the first 2^17 positions; each op its plain
+   version; the histogram the CPU's.  anchor_lookup's and
+   anchor_chunk_fast's warm times per chunk are printed.  Then calls
+   written for panagram_tpu: lookup.bucket_query_sorted on the chunk's
+   canonical k-mers must launch probe_sorted once (counts from 0 around
+   it) and give bucket_query's, anchor_lookup's and the oracle's rows;
+   anchor_chunk_fast must give the stream's bitmap.1.gz rows and make no
+   host synchronisation; anchor_chunk(codes, keys, masks, k) the oracle's
+   rows with one fused_popcount_colsums launch; counted_kmers_chunked(
+   codes, k, 3), distinct_kmers_chunked(codes, k, chunk),
+   pairwise_shared(block) and DeviceDictBuilder(k, ngenomes, chunk,
+   capacity_hint), called positionally, must run on the card (min-count
+   3 where 3 is given) and equal the CPU's.  bucket_query_sorted's warm
+   time per 2^22 queries is printed beside anchor_chunk_fast's, each call's
+   wall beside them.  The host anchorer
    (native/anchor_cpu, built with g++ from the checkout) over
    pandict.npz's canonical keys anchors g0 whole at API_THREADS threads
    and at os.cpu_count(); its bytes and popcounts must equal bitmap.1.gz.
@@ -102,7 +116,14 @@
    pairwise_shared on the CPU; write_umaps must rewrite g0's CSVs
    byte for byte; plot_umaps renders where matplotlib imports and
    otherwise must raise naming it), and make_bins_bits again through
-   ``python -m``; their walls are printed.
+   ``python -m``; their walls are printed.  Last, the shell wrappers:
+   panagram_tpu_torch/scripts/preprocess.sh on the full-index phase's
+   samples (the card by default) must reproduce every file of that
+   phase's --cores 1 CLI tree but config.yaml and samples.tsv's anchor
+   column (the wrapper, as panagram_tpu's, anchors every assembly; the
+   CLI run named three), and run_umaps.sh on the slice's index must write
+   g0's CSVs as the build did, then stop at plot_umaps naming matplotlib
+   where it is missing; their walls are printed.
 11. Layout phase: ~1e8 mixed keys drawn on the card (W=1) laid out by
    BucketedDict.build_device, the single-pass route, the chunked route and
    the single-pass route of the keys shuffled; the tables must be equal and
@@ -200,7 +221,7 @@ def max_abs_err(got, want) -> int:
 
 def kernel_phase(dev, ngenomes: int, rng, flush) -> dict:
     """Each kernel against its plain version on a main-path-sized chunk,
-    then one whole anchor_chunk on the same inputs, which must make no host
+    then one whole anchor_chunk_fast on the same inputs, which must make no host
     synchronisation.  Returns {name: compare()'s dict}."""
     inp = chunk_inputs(dev, ngenomes, rng)
     bd = inp.bd
@@ -222,9 +243,9 @@ def kernel_phase(dev, ngenomes: int, rng, flush) -> dict:
         n: {"warm_ms": r["warm_ms"], "cold_ms": r["cold_ms"]}
         for n, r in out.items()})
     if chunk["host_syncs"]:
-        raise AssertionError("anchor_chunk made the host wait for the card "
+        raise AssertionError("anchor_chunk_fast made the host wait for the card "
                              "(torch's sync debug mode raised)")
-    print(f"  anchor_chunk, whole       no host synchronisation; warm "
+    print(f"  anchor_chunk_fast, whole  no host synchronisation; warm "
           f"{chunk['warm_ms']:.5f} ms, cold {chunk['cold_ms']:.5f} ms; its "
           f"four kernels {chunk['kernels_warm_ms']:.5f} / "
           f"{chunk['kernels_cold_ms']:.5f} ms; the library operations "
@@ -786,7 +807,7 @@ def full_index_phase(work: str, seqs: dict, card: str, dev) -> dict:
         raise AssertionError("the FASTQ read set was anchored")
     got = np.load(os.path.join(p3, "kmc", "reads.kmers.npz"))["kmers"]
     t0 = time.perf_counter()
-    want = count.counted_kmers_chunked(iter(reads), K, "cpu",
+    want = count.counted_kmers_chunked(iter(reads), K, device="cpu",
                                        min_count=pipeline.FASTQ_MIN_COUNT)
     cpu_s = time.perf_counter() - t0
     if not np.array_equal(got, want):
@@ -1526,6 +1547,139 @@ def _run_script(main, argv) -> tuple[str, float]:
     return out.getvalue(), time.perf_counter() - t0
 
 
+def _launched(fn):
+    """(fn()'s result, the kernel launches it made, its wall seconds): the
+    counts set to 0 just before and read after the card finished."""
+    from panagram_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: c for n, c in kernels.launches.items() if c}, \
+        time.perf_counter() - t0
+
+
+def panagram_tpu_calls(card: str, seqs: dict, pan, bd, codes, canon, keys,
+                       masks, rows, chunk, bitmap, chunk_ms: float,
+                       timer: str) -> np.ndarray:
+    """Calls written for panagram_tpu, on the card: its merge probe
+    bucket_query_sorted (one probe_sorted launch) against its gather probe,
+    anchor_lookup's rows and the oracle; anchor_chunk_fast against the
+    stream's bitmap; its sorted-dictionary anchor_chunk(codes, keys,
+    masks, k); and positional calls of the signatures that follow
+    panagram_tpu's order, each on the card by default.  Returns
+    pairwise_shared(block)'s matrix, for the CPU's to check."""
+    from panagram_tpu_torch.ops import anchor, count, lookup
+    from panagram_tpu_torch.ops.devdict import DeviceDictBuilder
+    from panagram_tpu_torch.ops.ref_impl import anchor_np
+
+    N, P = pan.ngenomes, canon.shape[0]
+    oracle = anchor_np(codes[:ORACLE_POSITIONS + K - 1], K, pan.keys,
+                       pan.masks)
+    walls = {}
+    q, launched, walls["bucket_query_sorted"] = _launched(
+        lambda: lookup.bucket_query_sorted(canon, bd.table, bd.nbits, bd.cap,
+                                           bd.nwords))
+    if launched != {"probe_sorted": 1}:
+        raise AssertionError(f"bucket_query_sorted launched {launched}, "
+                             "want probe_sorted once")
+    gather, _, walls["bucket_query"] = _launched(
+        lambda: lookup.bucket_query(canon, bd.table, bd.nbits, bd.cap,
+                                    bd.nwords))
+    fast, launched, walls["anchor_chunk_fast"] = _launched(chunk)
+    if launched != {n: 1 for n in ANCHOR_KERNELS}:
+        raise AssertionError(f"anchor_chunk_fast launched {launched}, want "
+                             "each anchor kernel once")
+    if not (torch.equal(q, gather) and torch.equal(q, rows)
+            and np.array_equal(q[:ORACLE_POSITIONS].cpu().numpy().view(
+                np.uint32), oracle)):
+        raise AssertionError("bucket_query_sorted's rows differ from "
+                             "bucket_query's, anchor_lookup's or the oracle's")
+    if not (np.array_equal(fast[0].cpu().numpy(), bitmap[:P])
+            and torch.equal(fast[0], lookup.kernels.masks_to_bytes(
+                q, bitmap.shape[1]))
+            and torch.equal(fast[1], lookup.kernels.fused_popcount_colsums(
+                q, 0)[0])):
+        raise AssertionError("anchor_chunk_fast differs from the stream's "
+                             "bitmap.1.gz or from the merge probe's rows")
+    if host_syncs(chunk):
+        raise AssertionError("anchor_chunk_fast made the host wait for the "
+                             "card (torch's sync debug mode raised)")
+    codes_t = torch.from_numpy(codes).to(canon.device)
+    (crows, cpopc), launched, walls["anchor_chunk"] = _launched(
+        lambda: anchor.anchor_chunk(codes_t, keys, masks, K))
+    if launched != {"fused_popcount_colsums": 1} or not (
+            torch.equal(crows, rows) and torch.equal(cpopc, fast[1])
+            and np.array_equal(crows[:ORACLE_POSITIONS].cpu().numpy().view(
+                np.uint32), oracle)):
+        raise AssertionError(f"anchor_chunk(codes, keys, masks, k): launches "
+                             f"{launched}, or its rows differ from the "
+                             "oracle's")
+    sorted_ms = warm_ms(lambda: lookup.bucket_query_sorted(
+        canon, bd.table, bd.nbits, bd.cap, bd.nwords), launches=20)
+    print(f"  panagram_tpu's calls [{card}]: bucket_query_sorted (probe_sorted "
+          f"x1) = bucket_query = anchor_lookup = the oracle; "
+          f"anchor_chunk_fast (each anchor kernel x1) = bitmap.1.gz, no host "
+          f"synchronisation; "
+          f"anchor_chunk(codes, keys, masks, k) = the oracle "
+          f"(fused_popcount_colsums x1).  Warm per {P} queries: "
+          f"bucket_query_sorted {sorted_ms:.4f} ms, anchor_chunk_fast "
+          f"{chunk_ms:.4f} ms ({timer}); one call's wall s: " + ", ".join(
+              f"{n} {w:.4f}" for n, w in walls.items()), flush=True)
+    del q, gather, fast, crows, cpopc, codes_t
+    walls = {}
+
+    # positional calls in panagram_tpu's form; each runs on the card
+    parts = [codes[:300_000], codes[100_000:400_000], codes[200_000:500_000]]
+
+    def on_card(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, _, wall = _launched(fn)
+        if torch.cuda.max_memory_allocated() <= base:
+            raise AssertionError("the call allocated nothing on the card")
+        return out, wall
+
+    got, walls["counted_kmers_chunked(codes, k, 3)"] = on_card(
+        lambda: count.counted_kmers_chunked(iter(parts), K, 3))
+    want = count.counted_kmers_chunked(iter(parts), K, 3, device="cpu")
+    twice = count.counted_kmers_chunked(iter(parts), K, 2, device="cpu")
+    if not (np.array_equal(got, want) and 0 < len(want) < len(twice)):
+        raise AssertionError("counted_kmers_chunked(codes, k, 3) is not the "
+                             "min-count 3 set")
+    got, walls["distinct_kmers_chunked(codes, k, chunk)"] = on_card(
+        lambda: count.distinct_kmers_chunked(iter(parts), K, 1 << 18))
+    if not np.array_equal(got, count.distinct_kmers_chunked(
+            iter(parts), K, 1 << 18, device="cpu")):
+        raise AssertionError("distinct_kmers_chunked(codes, k, chunk) "
+                             "differs from the CPU's")
+    shared, walls["pairwise_shared(block)"] = on_card(
+        lambda: pan.pairwise_shared(1 << 20))
+
+    def devdict(**device):
+        b = DeviceDictBuilder(K, 2, 1 << 20, None, **device)
+        for gid, g in enumerate(("g0", "g1")):
+            b.add_sequence(gid, seqs[g][:1_000_000])
+        return b.to_host()
+
+    got, walls["DeviceDictBuilder(k, ngenomes, chunk, capacity_hint)"] = \
+        on_card(devdict)
+    want = devdict(device="cpu")
+    if not (np.array_equal(got.keys, want.keys)
+            and np.array_equal(got.masks, want.masks)):
+        raise AssertionError("DeviceDictBuilder on the card differs from the "
+                             "CPU's")
+    print(f"  positional calls in panagram_tpu's form, on the card by default "
+          f"(BucketedDict.build_device(keys, masks, ngenomes, k, mixed, "
+          f"count, min_nbits, sorted_input) laid out the table above), wall "
+          f"s [{card}]: " + ", ".join(f"{n} {w:.4f}" for n, w in walls.items()),
+          flush=True)
+    return shared
+
+
 def api_phase(work: str, seqs: dict, card: str, dev):
     """The public Python API and the user scripts on the slice's index: the
     package exports, ops.anchor_lookup on the slice's dictionary against the
@@ -1592,20 +1746,27 @@ def api_phase(work: str, seqs: dict, card: str, dev):
     print(f"  ops on g0's first {P} positions ({len(pan)} keys, W="
           f"{pan.nwords}): launches {launches}", flush=True)
 
-    bd = BucketedDict.build_device(pan.keys, pan.masks, N, K, dev)
+    # panagram_tpu's positional form: (keys, masks, ngenomes, k, mixed,
+    # count, min_nbits, sorted_input); the table goes to the card by default
+    bd = BucketedDict.build_device(pan.keys, pan.masks, N, K, False, None, 2,
+                                   False)
+    if bd.table.device.type != "cuda":
+        raise AssertionError(f"build_device laid out on {bd.table.device}")
     packed, nmask, L = pack_bases_np(codes)
     packed, nmask = torch.from_numpy(packed).to(dev), torch.from_numpy(nmask).to(dev)
 
     def chunk():
-        return anchor.anchor_chunk(packed, nmask, L, K, bd.table, bd.nbits,
-                                   bd.cap, bd.nwords, nbytes)
+        return anchor.anchor_chunk_fast(packed, nmask, bd.table, L, K,
+                                        bd.nbits, bd.cap, bd.nwords, nbytes)
 
     cby, cpopc, ccols = chunk()
-    if not (torch.equal(by[:, :nbytes], cby[:P])
-            and torch.equal(popc, cpopc[:P])
-            and torch.equal(sums, ccols[:N].to(torch.int64))
+    if not (torch.equal(by[:, :nbytes], cby)
+            and torch.equal(popc, cpopc)
+            and torch.equal(sums, ccols[:N])
+            and ccols.dtype == torch.int64
             and not bool((by[:, nbytes:] != 0).any())):
-        raise AssertionError("anchor_lookup's rows differ from anchor_chunk's")
+        raise AssertionError("anchor_lookup's rows differ from "
+                             "anchor_chunk_fast's")
     oracle = anchor_np(codes[:ORACLE_POSITIONS + K - 1], K, pan.keys,
                        pan.masks)
     if not np.array_equal(rows[:ORACLE_POSITIONS].cpu().numpy().view(
@@ -1630,7 +1791,7 @@ def api_phase(work: str, seqs: dict, card: str, dev):
         try:
             chunk()
         except RuntimeError:
-            print("  anchor_chunk syncs here:\n" + "\n".join(
+            print("  anchor_chunk_fast syncs here:\n" + "\n".join(
                 traceback.format_exc().strip().splitlines()[-8:]), flush=True)
         finally:
             torch.cuda.set_sync_debug_mode("default")
@@ -1643,16 +1804,19 @@ def api_phase(work: str, seqs: dict, card: str, dev):
         # 20 calls, as chunk_times queues: 50 chunks' ~1,250 launches
         # overflow the stream's queue behind the blocker
         chunk_ms, timer = warm_ms(chunk, launches=20), "warm"
-    print(f"  anchor_lookup rows = anchor_chunk's and the oracle's (first "
-          f"{ORACLE_POSITIONS}); {', '.join(checks)} = their plain versions "
-          f"[{card}]: anchor_lookup {lookup_ms:.4f} ms warm per {P} "
-          f"positions (searchsorted over {len(pan)} keys), anchor_chunk "
+    print(f"  anchor_lookup rows = anchor_chunk_fast's and the oracle's "
+          f"(first {ORACLE_POSITIONS}); {', '.join(checks)} = their plain "
+          f"versions [{card}]: anchor_lookup {lookup_ms:.4f} ms warm per {P} "
+          f"positions (searchsorted over {len(pan)} keys), anchor_chunk_fast "
           f"{chunk_ms:.4f} ms ({timer}) on the same chunk", flush=True)
-    del rows, popc, sums, by, hist, cby, cpopc, ccols, bd, keys, masks, canon
 
     d0 = os.path.join(prefix, "anchor", "g0")
     bitmap = np.frombuffer(decompress_file(os.path.join(d0, "bitmap.1.gz")),
                            np.uint8).reshape(-1, nbytes)
+    positional_shared = panagram_tpu_calls(
+        card, seqs, pan, bd, codes, canon, keys, masks, rows, chunk, bitmap,
+        chunk_ms, timer)
+    del rows, popc, sums, by, hist, cby, cpopc, ccols, bd, keys, masks, canon
     bitmap_popc = np.unpackbits(bitmap, axis=1, bitorder="little").sum(
         axis=1, dtype=np.int32)
     t0 = time.perf_counter()
@@ -1695,9 +1859,13 @@ def api_phase(work: str, seqs: dict, card: str, dev):
     out, walls["pairwise_matrix"] = _run_script(pairwise_matrix.main, [prefix])
     shared = np.array([[int(x) for x in line.split("\t")[1:]]
                        for line in out.splitlines()[1:]])
-    if not np.array_equal(shared, pan.pairwise_shared(device="cpu")):
+    cpu_shared = pan.pairwise_shared(device="cpu")
+    if not np.array_equal(shared, cpu_shared):
         raise AssertionError("pairwise_matrix on the card differs from "
                              "pairwise_shared on the CPU")
+    if not np.array_equal(positional_shared, cpu_shared):
+        raise AssertionError("pairwise_shared(block) on the card differs "
+                             "from pairwise_shared on the CPU")
     csvs = {f: open(os.path.join(d0, f), "rb").read()
             for f in ("chrom_umaps.csv", "genome_umap.csv")}
     out, walls["write_umaps"] = _run_script(write_umaps.main, [prefix, "g0"])
@@ -1738,7 +1906,103 @@ def api_phase(work: str, seqs: dict, card: str, dev):
                              "make_bins_bits differs from its run in process")
     print(f"  scripts on the slice's index, wall s [{card}]: " + ", ".join(
         f"{n} {w:.3f}" for n, w in walls.items()), flush=True)
+    shell_wrappers(work, card, csvs)
     return launches
+
+
+def shell_wrappers(work: str, card: str, csvs: dict):
+    """preprocess.sh on the full-index phase's samples on the card (its
+    default): every file of the CLI's --cores 1 tree must equal the
+    wrapper's, but config.yaml (paths, cores, the anchor list) and
+    samples.tsv's anchor column: the CLI anchored g0-g2
+    (--anchor-genomes), the wrapper, as panagram_tpu's, every assembly.
+    run_umaps.sh on the slice's index: g0's CSVs as the build wrote them,
+    then plot_umaps, which without matplotlib must stop the script naming
+    it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    scripts = os.path.join(here, "panagram_tpu_torch", "scripts")
+    cli, out = os.path.join(work, "idx_full_c1"), os.path.join(work, "idx_pre")
+    # a `python` first on PATH that notes when each command starts
+    shim = os.path.join(work, "shim")
+    os.makedirs(shim)
+    starts = os.path.join(work, "preprocess_starts.txt")
+    with open(os.path.join(shim, "python"), "w") as f:
+        f.write(f'#!/bin/sh\necho "$(date +%s.%N) $*" >> {starts}\n'
+                f'exec {sys.executable} "$@"\n')
+    os.chmod(os.path.join(shim, "python"), 0o755)
+    t0, start = time.perf_counter(), time.time()
+    res = subprocess.run(
+        ["bash", os.path.join(scripts, "preprocess.sh"),
+         os.path.join(work, "samples_full.tsv"), str(K), out, "3"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        timeout=900, env=dict(env, PATH=shim + os.pathsep + env["PATH"]))
+    pre_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError("preprocess.sh failed:\n" + res.stderr[-3000:])
+    marks = []
+    with open(starts) as f:
+        for line in f:
+            t, _, _, cmd, *args = line.split()   # time -m package command
+            marks.append((float(t), cmd + (" --prepare" if "--prepare" in args
+                                           else f" {args[1]}" if
+                                           cmd == "annotate" else "")))
+    ends = [t for t, _ in marks[1:]] + [start + pre_s]
+    commands = ", ".join(f"{c} {e - t:.3f}"
+                         for (t, c), e in zip(marks, ends))
+    n = same_trees(cli, out, "the CLI's tree and preprocess.sh's",
+                   skip=("config.yaml", "samples.tsv"))
+    with open(os.path.join(cli, "samples.tsv")) as f, \
+            open(os.path.join(out, "samples.tsv")) as g:
+        a = [r.split("\t")[:-1] for r in f.read().splitlines()]
+        b = [r.split("\t")[:-1] for r in g.read().splitlines()]
+    anchored = sorted(os.listdir(os.path.join(out, "anchor")))
+    if a != b or len(anchored) != GENOMES:
+        raise AssertionError(f"preprocess.sh: samples.tsv differs, or "
+                             f"{len(anchored)} anchors for {GENOMES}")
+    walls = stage_walls(out)
+    count_s = sum(v for k, v in walls.items() if k.startswith("kmc."))
+    anchor_s = sum(v for k, v in walls.items() if k.startswith("anchor."))
+    print(f"preprocess.sh [{card}]: {pre_s:.3f} s wall (prepare, index "
+          f"--cores 3, annotate x3, on the card); the CLI tree's {n} files "
+          f"equal, {len(anchored)} anchors; its commands (s, start to the "
+          f"next start): {commands}; its build's stages: count "
+          f"{count_s:.3f} s (summed over {sum(k.startswith('kmc.') for k in walls)} "
+          f"samples), dict {walls['dict']:.3f}, layout {walls['layout']:.3f}, "
+          f"anchor {anchor_s:.3f} (summed over the threads' anchors), dist "
+          f"{walls['mash.triangle']:.3f}", flush=True)
+
+    prefix = os.path.join(work, "idx")
+    d0 = os.path.join(prefix, "anchor", "g0")
+    for f in csvs:
+        os.remove(os.path.join(d0, f))
+    try:
+        import matplotlib  # noqa: F401
+        plots = True
+    except ImportError:
+        plots = False
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        ["bash", os.path.join(scripts, "run_umaps.sh"), prefix, "g0",
+         os.path.join(work, "umaps_sh")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, timeout=900, env=env)
+    umaps_s = time.perf_counter() - t0
+    if any(open(os.path.join(d0, f), "rb").read() != b
+           for f, b in csvs.items()):
+        raise AssertionError("run_umaps.sh did not write g0's CSVs as the "
+                             "build did")
+    shared = [f for f in os.listdir(d0) if f.startswith("perc_shared")]
+    if plots and (res.returncode != 0 or not shared):
+        raise AssertionError("run_umaps.sh failed:\n" + res.stderr[-3000:])
+    if not plots and (res.returncode == 0 or "matplotlib" not in res.stderr
+                      or shared):
+        raise AssertionError("run_umaps.sh without matplotlib: exit "
+                             f"{res.returncode}, perc_shared files {shared}:"
+                             "\n" + res.stderr[-3000:])
+    print(f"run_umaps.sh [{card}]: {umaps_s:.3f} s wall; g0's CSVs equal the "
+          "build's; " + ("plots and perc_shared files written" if plots else
+                         f"exit {res.returncode} at plot_umaps: "
+                         + res.stderr.strip().splitlines()[-1]), flush=True)
 
 
 def layout_phase(dev, card: str):
@@ -1762,8 +2026,9 @@ def layout_phase(dev, card: str):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    bd = lookup.BucketedDict.build_device(m, masks, 30, K, dev, mixed=True,
-                                          count=D, sorted_input=True)
+    bd = lookup.BucketedDict.build_device(m, masks, 30, K, mixed=True,
+                                          count=D, sorted_input=True,
+                                          device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_peak = torch.cuda.max_memory_allocated() - base
@@ -1828,8 +2093,8 @@ def layout_phase(dev, card: str):
     # a sample of keys finds its masks, absent keys find nothing
     idx = torch.randint(0, D, (1 << 20,), generator=g, device=dev)
     hi, lo = split64(m[idx])
-    rows = lookup.bucket_query(hi, lo, bd.table, nbits, bd.cap, 1)
-    miss = lookup.bucket_query(hi ^ 1, lo, bd.table, nbits, bd.cap, 1)
+    rows = lookup.bucket_query_pairs(hi, lo, bd.table, nbits, bd.cap, 1)
+    miss = lookup.bucket_query_pairs(hi ^ 1, lo, bd.table, nbits, bd.cap, 1)
     if not torch.equal(rows, masks[idx]) or bool(miss.any()):
         raise AssertionError("layout phase: sampled keys do not find their masks")
     print("  2^20 sampled keys find their masks; flipped keys miss", flush=True)
@@ -1843,6 +2108,7 @@ def main():
                  "script runs on a CUDA card")
     from panagram_tpu_torch import _build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
@@ -1867,17 +2133,30 @@ def main():
     mosaic, mosaic_launches = mosaic_phase(dev, flush)
     del flush
 
+    def at(phase: str):
+        print(f"[{time.perf_counter() - t_start:.1f} s into the script] "
+              f"{phase}", flush=True)
+
+    at("kernel and mosaic phases done")
     with tempfile.TemporaryDirectory() as work:
         launches, seqs, slice_peak = slice_phase(work, card)
+        at("slice phase done")
         device_dict_phase(work, card)
+        at("device-dict phase done")
         full_index_phase(work, seqs, card, dev)
+        at("full-index phase done")
         g0_bits, g0_oracle = read_phase(work, seqs, card)
         view_phase(work, card, g0_bits, g0_oracle)
+        at("read and view phases done")
         intros_phase(work, card)
+        at("intros phase done")
         mesh_phase(work, card, dev, slice_peak)
+        at("mesh phase done")
         api_phase(work, seqs, card, dev)
+        at("api phase done")
     launches["mosaic_probe"] = mosaic_launches
     layout_phase(dev, card)
+    at("layout phase done")
 
     rows = []
     print(f"kernels at the main path's shapes [{card}; bound at "

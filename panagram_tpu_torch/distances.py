@@ -23,10 +23,10 @@ def mash_distance(jaccard: float, k: int) -> float:
     return max(0.0, -np.log(2 * jaccard / (1 + jaccard)) / k)
 
 
-def write_genome_dist(pan_dict, names, out_path: str, device="cuda"):
+def write_genome_dist(pan_dict, names, out_path: str, *, device="cuda"):
     """pan_dict: PanKmerDict; names: genome names in id order; the shared
     counts are computed on `device`."""
-    shared = pan_dict.pairwise_shared(device)
+    shared = pan_dict.pairwise_shared(device=device)
     k = pan_dict.k
     with open(out_path, "w") as f:
         for i in range(1, len(names)):

@@ -49,8 +49,14 @@ logger = logging.getLogger(__name__)
 NAME_REGEX = "[A-Za-z0-9_-]+"
 ANCHOR_DIR = "anchor"
 FASTQ_EXTS = (".fastq", ".fastq.gz", ".fq", ".fq.gz")
+BGZ_SUFFIX = "gz"
+IDX_SUFFIX = "gzi"
 TABIX_COLS = ["chr", "start", "end", "type", "name"]
+TABIX_TYPES = {"start": int, "end": int}
 GENE_COLS = ["chr", "start", "end", "name"]
+
+_LOG_FORMAT = "[%(asctime)s %(levelname)s] %(message)s"
+_LOG_DATEFMT = "%Y-%m-%d %H:%M:%S"
 
 # positions per streamed anchor chunk (upper end of the pow2 ladder);
 # panagram_tpu's knob of the same name sets it for runs and tests that need
@@ -63,6 +69,15 @@ _NA_STRINGS = frozenset([
     "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
     "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
     "nan", "null"])
+
+
+def init_logger(logfile=None):
+    """INFO logging as panagram_tpu configures it: to `logfile` (replacing
+    the root logger's handlers) when given, else to stderr unless logging
+    is configured already."""
+    logging.basicConfig(filename=logfile, level=logging.INFO,
+                        format=_LOG_FORMAT, datefmt=_LOG_DATEFMT,
+                        force=logfile is not None)
 
 
 def _field(v):
@@ -273,10 +288,10 @@ class Index:
         for i, row in enumerate(self.samples):
             anchor = _field(row.get("anchor"))
             self.genomes[row["name"]] = Genome(
-                self, row["name"], _field(row.get("fasta")),
-                _field(row.get("gff")),
+                self, int(_field(row.get("id")) or i), row["name"],
+                _field(row.get("fasta")), _field(row.get("gff")),
                 None if anchor is None else anchor == "True",
-                write=self.write_mode, id=int(_field(row.get("id")) or i))
+                write=self.write_mode)
         self.chrs = None
         if not self.write_mode:
             self._init_read()
@@ -365,7 +380,13 @@ class Index:
                    [[n, fasta or "", gff or "", i, str(n in anchors)]
                     for i, (n, fasta, gff) in enumerate(table)])
         self.conf.input = os.path.basename(samples_tsv)
+        self.write_config()
+
+    def write_config(self):
         self.conf.save(config_path(self.prefix))
+
+    def load_config(self):
+        self.conf = IndexConfig.load(config_path(self.prefix))
 
     @property
     def k(self):
@@ -384,6 +405,13 @@ class Index:
         return self.conf.steps
 
     @property
+    def params(self) -> dict:
+        """The configuration as a dict, with the index's prefix."""
+        d = self.conf.to_dict(exclude=())
+        d["prefix"] = self.prefix
+        return d
+
+    @property
     def genome_names(self):
         return list(self.genomes)
 
@@ -391,10 +419,13 @@ class Index:
     def genome_dist_fname(self):
         return os.path.join(self.prefix, "genome_dist.tsv")
 
+    def get_subdir(self, name):
+        return os.path.join(self.prefix, name)
+
     @property
     def kmer_dir(self):
         """Per-genome k-mer sets and the dictionary."""
-        return os.path.join(self.prefix, "kmc")
+        return self.get_subdir("kmc")
 
     def kmer_set_fname(self, name):
         return os.path.join(self.kmer_dir, f"{name}.kmers.npz")
@@ -440,6 +471,10 @@ class Index:
         return (Table(occ, self.bitsum_index, list(starts // binlen)),
                 Table(scaled.T, list(bitmap.columns), list(starts)))
 
+    def bitmap_to_paircount_bins(self, bitmap: Table, binlen: int) -> Table:
+        """The paircount_bins table of bitmap_to_bins."""
+        return self.bitmap_to_bins(bitmap, binlen)[1]
+
     def bitmap_to_pancount(self, bitmap: Table) -> Table:
         """Genomes present per row of a query_bitmap table (uint64, numpy's
         sum of uint8, as panagram_tpu's)."""
@@ -463,11 +498,11 @@ class Index:
 class Genome:
     """One genome of the index; anchored genomes own an anchor/<name>/ dir."""
 
-    def __init__(self, idx, name, fasta=None, gff=None, anchor=None,
-                 write=True, id=None):
+    def __init__(self, idx, id, name, fasta=None, gff=None, anchor=None,
+                 write=False):
         self.index = idx
-        self.name = name
         self.id = id           # samples.tsv's id (the genome's bit)
+        self.name = name
         self.fasta = fasta
         self.gff = gff
         self.is_fastq = fasta is not None and fasta.endswith(FASTQ_EXTS)
@@ -540,10 +575,41 @@ class Genome:
         return os.path.join(self.prefix, "total_paircounts.csv")
 
     def bitmap_gz_fname(self, step):
-        return os.path.join(self.prefix, f"bitmap.{step}.gz")
+        return os.path.join(self.prefix, f"bitmap.{step}.{BGZ_SUFFIX}")
 
     def bitmap_gzi_fname(self, step):
-        return os.path.join(self.prefix, f"bitmap.{step}.gzi")
+        return os.path.join(self.prefix, f"bitmap.{step}.{IDX_SUFFIX}")
+
+    @property
+    def anchor_filenames(self) -> list:
+        """The files anchoring writes (annotated genomes: the gene and
+        annotation tables too); none for a genome that is not anchored."""
+        if not self.anchored:
+            return []
+        ret = [self.chrs_fname, self.bins_fname]
+        for s in self.steps:
+            ret += [self.bitmap_gz_fname(s), self.bitmap_gzi_fname(s)]
+        if self.annotated:
+            ret.append(self.chr_genes_fname)
+            for t in ["gene", "anno"]:
+                ret += [self.tabix_fname(t), self.tabix_idx_fname(t)]
+        return ret
+
+    @property
+    def bitsum_index(self) -> range:
+        """Occupancy values 0..N (panagram_tpu's pd.RangeIndex)."""
+        return range(0, self.ngenomes + 1)
+
+    @property
+    def gene_tabix_types(self) -> dict:
+        r = {"start": int, "end": int}
+        for i in [1, self.ngenomes]:
+            r[i] = int
+        return r
+
+    @property
+    def chr_count(self) -> int:
+        return len(self.chrs)
 
     def _peer_anchor_dir(self, pid: int, me: int) -> str:
         """Process `pid`'s anchor directory of this genome, seen from
@@ -567,20 +633,36 @@ class Genome:
     def primary_bitmap_fname(self, step, me: int) -> str:
         """Where the stitched bitmap of a multi-process build lives: under
         process 0's prefix (the others keep only the derived tables)."""
-        return os.path.join(self._peer_anchor_dir(0, me), f"bitmap.{step}.gz")
+        return os.path.join(self._peer_anchor_dir(0, me),
+                            f"bitmap.{step}.{BGZ_SUFFIX}")
 
     def init_chrs(self):
         """Chromosome table from the FASTA index; size = L - k + 1, clamped
         at 0 for records shorter than k."""
         k = self.index.k
         with FastaFile(self._fasta_path) as fa:
-            self.chrs = [[name, i, max(fa.get_reference_length(name) - k + 1, 0), 0]
-                         for i, name in enumerate(fa.references)]
+            self.set_chrs([[name, i, max(fa.get_reference_length(name) - k + 1, 0)]
+                           for i, name in enumerate(fa.references)])
+        return self.chrs
 
     def load_chrs(self):
-        self.chrs = [[r["name"], int(r["id"]), int(r["size"]),
-                      int(r.get("gene_count") or 0)]
-                     for r in _read_tsv(self.chrs_fname)]
+        self.set_chrs([[r["name"], int(r["id"]), int(r["size"]),
+                        int(r.get("gene_count") or 0)]
+                       for r in _read_tsv(self.chrs_fname)])
+
+    def set_chrs(self, chrs):
+        """Take `chrs` as the chromosome table: records [name, id, size] or
+        [name, id, size, gene_count] (a missing gene_count is 0, as
+        panagram_tpu's set_chrs adds it), or a Table as chrs_table gives
+        (rows the names; columns id, size and optionally gene_count)."""
+        if isinstance(chrs, Table):
+            cols = [c for c in ("id", "size", "gene_count")
+                    if c in chrs.columns]
+            at = [list(chrs.columns).index(c) for c in cols]
+            chrs = [[name] + [int(row[i]) for i in at]
+                    for name, row in zip(chrs.index, chrs.values)]
+        self.chrs = [[c[0], int(c[1]), int(c[2]),
+                      int(c[3]) if len(c) > 3 else 0] for c in chrs]
 
     def write_chrs(self):
         _write_tsv(self.chrs_fname, ["name", "id", "size", "gene_count"],
@@ -592,8 +674,8 @@ class Genome:
         panagram_tpu's ``sizes`` Series as a dict."""
         return {c[0]: c[2] for c in self.chrs}
 
-    def seq_len(self, name) -> int:
-        return self.sizes[name]
+    def seq_len(self, seq_name) -> int:
+        return self.sizes[seq_name]
 
     @property
     def chrs_table(self) -> Table:
@@ -619,17 +701,36 @@ class Genome:
             binlen = nkmers // self.index.conf.min_bin_count
         return max(int(binlen), 1)
 
-    def run_anchor(self, bucketed=None, mesh=None, sharded=None):
+    def iter_fasta(self):
+        """(name, sequence) of each record of this genome's FASTA."""
+        yield from iter_fasta(self._fasta_path)
+
+    def run_anchor(self, pan_dict=None, logfile=None, bucketed=None,
+                   mesh=None, sharded=None, *, device="cuda"):
         """Anchor this genome and write its anchor/<name>/ files: against
         `bucketed` (a BucketedDict whose table is on the compute device),
-        or, called by every rank of `mesh`, against `sharded` (this rank's
-        part of a parallel.shard dictionary).  On a mesh only writer ranks
-        write; with per-process piece writes (range strategy, several
+        else against `pan_dict` (a PanKmerDict; pandict.npz when None) laid
+        out on `device`, or, called by every rank of `mesh`, against
+        `sharded` (this rank's part of a parallel.shard dictionary).
+        `logfile` sends the log there (init_logger).  On a mesh only writer
+        ranks write; with per-process piece writes (range strategy, several
         processes, parallel.mesh.sharded_writes_enabled) each writer writes
         its ranks' bitmap rows as pieces and process 0 stitches them."""
+        if logfile:
+            init_logger(logfile)
         if not self.anchored:
             logger.info(f"Skipping non-anchor genome '{self.name}'")
             return
+        if mesh is None and bucketed is None:
+            from .ops.dictionary import PanKmerDict
+            from .ops.lookup import BucketedDict
+
+            if pan_dict is None:
+                pan_dict = PanKmerDict.load(self.index.dict_fname)
+            mixed = pan_dict.key_space == "mixed"
+            bucketed = BucketedDict.build_device(
+                pan_dict.keys, pan_dict.masks, self.ngenomes, self.index.k,
+                mixed=mixed, sorted_input=mixed, device=device)
         k = self.index.k
         N = self.ngenomes
         nbytes = self.nbytes
@@ -650,8 +751,9 @@ class Genome:
             from .ops.anchor import stream_anchor_chunks
 
             def chunks(codes, nkmers):
-                return stream_anchor_chunks(codes, nkmers, chunk, bucketed,
-                                            nbytes, N, k, phase)
+                return stream_anchor_chunks(codes, nkmers, chunk, None, None,
+                                            bucketed, nbytes, N, k,
+                                            phase=phase)
         else:
             from .parallel.mesh import barrier, sharded_writes_enabled
             from .parallel.shard import ShardedBucketedDict, stream_mesh_chunks
@@ -872,13 +974,16 @@ class Genome:
         _write_tsv(self.chr_genes_fname, ["chr"] + list(range(N + 1)),
                    [[c] + [int(v) for v in h] for c, h in sums.items()])
 
-    def run_annotate(self, gff_file=None, nogene=False, device="cuda"):
+    def run_annotate(self, gff_file=None, logfile=None, nogene=False, *,
+                     device="cuda"):
         """(Re-)annotate from the existing bitmap: panagram_tpu's
-        Genome.run_annotate.  Each chromosome's genes are counted over one
-        read of its bitmap rows [first gene start, min(size, last gene
-        end)), whose per-position occupancy comes from the
-        fused_popcount_colsums kernel on `device`.  chrs.tsv is left as it
-        is."""
+        Genome.run_annotate (`logfile` as in run_anchor).  Each
+        chromosome's genes are counted over one read of its bitmap rows
+        [first gene start, min(size, last gene end)), whose per-position
+        occupancy comes from the fused_popcount_colsums kernel on
+        `device`.  chrs.tsv is left as it is."""
+        if logfile:
+            init_logger(logfile)
         if gff_file is not None:
             self.gff = gff_file
         self.annotated = True

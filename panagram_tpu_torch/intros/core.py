@@ -52,6 +52,13 @@ def bin_starts(bin_size, chr_length) -> np.ndarray:
         * bin_size
 
 
+def get_intro_df_template(bin_size, chr_length) -> Table:
+    """panagram_tpu's template of one chromosome's bins: one row of zeros
+    (row label 0), a column per bin start."""
+    starts = bin_starts(bin_size, chr_length)
+    return Table(np.zeros((1, len(starts)), np.int64), [0], starts.tolist())
+
+
 def bed_to_bins(bed, bin_size, chr_length) -> Table:
     """BED rows -> per-bin 0/1 flags, each coordinate rounded to the
     nearest bin (half to even); an event shorter than its rounding but at

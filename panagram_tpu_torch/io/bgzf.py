@@ -102,10 +102,14 @@ class BgzfWriter:
     kept, so the bytes equal the serial path's).  ``close()`` appends the
     EOF marker and shuts the pool down.  ``write_gzi(path)`` dumps the
     index: an entry for the start of every block after the first, the last
-    one at end-of-data."""
+    one at end-of-data.  Given a file object in place of a path, the writer
+    writes to it and, as panagram_tpu's, flushes it at close() but leaves
+    it open: the caller opened it."""
 
-    def __init__(self, path, level: int = 6):
-        self._fh = open(path, "wb")
+    def __init__(self, path_or_fileobj, level: int = 6):
+        self._own = isinstance(path_or_fileobj, (str, os.PathLike))
+        self._fh = (open(path_or_fileobj, "wb") if self._own
+                    else path_or_fileobj)
         self.level = level
         self._buf = bytearray()
         self._coffset = 0
@@ -172,6 +176,12 @@ class BgzfWriter:
             self._write_blocks(bytes(self._buf))
             self._buf.clear()
 
+    @property
+    def block_table(self) -> list[tuple[int, int]]:
+        """(compressed, uncompressed) offsets at the end of each block
+        written so far: the .gzi's entries."""
+        return list(self._blocks)
+
     def write_gzi(self, path: str):
         with open(path, "wb") as f:
             f.write(struct.pack("<Q", len(self._blocks)))
@@ -193,7 +203,10 @@ class BgzfWriter:
                 self._fh.write(EOF_MARKER)
         finally:
             self._closed = True
-            self._fh.close()
+            if self._own:
+                self._fh.close()
+            else:
+                self._fh.flush()
             if self._pool is not None:
                 self._pool.shutdown(wait=True)
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 import gzip
 import re
 
+GFF_NAMES = ["chr", "source", "type", "start", "end", "score", "strand",
+             "phase", "attr"]
 TABIX_COLS = ["chr", "start", "end", "type", "name"]
 MAX_PARENT_HOPS = 100
 

@@ -198,7 +198,7 @@ class TabixFile:
     def contigs(self) -> list[str]:
         return list(self.names)
 
-    def fetch(self, chrom=None, start=None, end=None):
+    def fetch(self, chrom=None, start=None, end=None, **kw):
         if chrom is None:
             for name in self.names:
                 yield from self.fetch(name)

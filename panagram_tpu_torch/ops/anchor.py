@@ -1,11 +1,13 @@
 """Anchoring: every position of an anchor genome -> its presence mask.
 
-The dense chunk (``anchor_chunk``) is the data path of panagram_tpu's
-``anchor_chunk_fast``: pack_mix turns a 2-bit packed chunk into mixed
-query pairs, the merge probe (lookup.bucket_query_sorted_pre, around the
-probe_sorted kernel) finds each position's mask row, and one pass each
-gives the popcounts with per-genome column sums and the bitmap bytes.
-All four device steps are the kernels of ops/kernels.py.
+The dense chunk (``anchor_chunk_fast``, panagram_tpu's name and order;
+its padded body ``_anchor_chunk_padded`` serves the stream): pack_mix
+turns a 2-bit packed chunk into mixed query pairs, the merge probe
+(lookup.bucket_query_sorted_pre, around the probe_sorted kernel) finds
+each position's mask row, and one pass each gives the popcounts with
+per-genome column sums and the bitmap bytes.  All four device steps are
+the kernels of ops/kernels.py.  ``anchor_chunk`` is panagram_tpu's other
+chunk step, over a sorted dictionary (``anchor_lookup``).
 
 panagram_tpu ships run-length forms of the same result (its v3/v4
 protocols) because its TPU's device-to-host link was slow; this engine
@@ -23,6 +25,7 @@ read once the chunk's results are waited for anyway).
 from __future__ import annotations
 
 import contextlib
+import sys
 import time
 from collections import deque
 
@@ -30,8 +33,9 @@ import numpy as np
 import torch
 
 from . import kernels
-from .codec import SENTINEL, flip64, pack_bases_np
-from .lookup import TILE_Q, bucket_query_sorted_pre
+from .codec import SENTINEL, flip64, pack_bases_np, pack_kmers
+from .kernels import masks_to_bytes  # noqa: F401  (panagram_tpu's ops.anchor name)
+from .lookup import TILE_Q, bucket_query_sorted_pre, plain_table
 
 PIPELINE_DEPTH = 2
 # rows per fused_popcount_colsums launch in genome_column_sums: its int32
@@ -39,9 +43,9 @@ PIPELINE_DEPTH = 2
 COLSUM_ROWS = (1 << 31) - 1
 
 
-def anchor_chunk(packed: torch.Tensor, nmask: torch.Tensor, L: int, k: int,
-                 table: torch.Tensor, nbits: int, cap: int, nwords: int,
-                 nbytes: int):
+def _anchor_chunk_padded(packed: torch.Tensor, nmask: torch.Tensor, L: int,
+                         k: int, table: torch.Tensor, nbits: int, cap: int,
+                         nwords: int, nbytes: int):
     """One dense chunk: packed bases of L positions -> (bitmap bytes uint8
     [Ppad, nbytes], popc int32 [Ppad], colsums int32 [32W]) for the
     P = L-k+1 k-mer positions, padded to Ppad (a multiple of TILE_Q) with
@@ -50,10 +54,46 @@ def anchor_chunk(packed: torch.Tensor, nmask: torch.Tensor, L: int, k: int,
     P = L - k + 1
     Ppad = -(-P // TILE_Q) * TILE_Q
     mhi, mlo = kernels.pack_mix(packed, nmask, L, k, Ppad)
-    rows = bucket_query_sorted_pre(mhi, mlo, table, nbits, cap, nwords, Ppad)
+    rows = bucket_query_sorted_pre(mhi, mlo, None, table, nbits, cap, nwords,
+                                   Ppad)
     popc, colsums = kernels.fused_popcount_colsums(rows, 32 * nwords)
     by = kernels.masks_to_bytes(rows, nbytes)
     return by, popc, colsums
+
+
+def anchor_chunk_fast(packed: torch.Tensor, nmask: torch.Tensor, table,
+                      L: int, k: int, nbits: int, cap: int, nwords: int,
+                      nbytes: int):
+    """panagram_tpu's dense chunk: packed bases of L positions (pack_bases_np
+    layout, on the device) against the bucket table (plain or packed-row)
+    -> (bitmap bytes uint8 [P, nbytes], popc int32 [P], colsums int64
+    [32W]) for the P = L-k+1 positions.  The four kernels of
+    _anchor_chunk_padded; the rows are views of its padded results, and
+    nothing is read back to the host."""
+    P = L - k + 1
+    by, popc, colsums = _anchor_chunk_padded(
+        packed, nmask, L, k, plain_table(table, nbits, packed.device), nbits,
+        cap, nwords, nbytes)
+    return by[:P], popc[:P], colsums.to(torch.int64)
+
+
+def anchor_chunk(codes: torch.Tensor, keys: torch.Tensor, masks: torch.Tensor,
+                 k: int):
+    """panagram_tpu's sorted-dictionary chunk step: codes uint8 [CH + k - 1]
+    -> (mask rows int32 [CH, W], popc int32 [CH]) against keys int64 [D]
+    sorted in unsigned order (SENTINEL pads at the tail) and masks int32
+    [D, W]: pack_kmers, anchor_lookup and mask_popcount (the
+    fused_popcount_colsums kernel on a CUDA device)."""
+    canon, _ = pack_kmers(codes, k)
+    rows = anchor_lookup(canon, keys, masks)
+    return rows, mask_popcount(rows)
+
+
+def pack_bases_combined(codes: np.ndarray):
+    """pack_bases_np's two arrays in one host buffer: (inbuf uint8
+    [ceil(L/4) + ceil(L/8)], L), panagram_tpu's single-transfer layout."""
+    packed, nmask, L = pack_bases_np(codes)
+    return np.concatenate([packed, nmask]), L
 
 
 def anchor_lookup(canon: torch.Tensor, keys: torch.Tensor,
@@ -130,22 +170,33 @@ class _Slot:
         self.ready = torch.cuda.Event(enable_timing=True) if cuda else None
 
 
-def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int, bd,
-                         nbytes: int, ngenomes: int, k: int,
+def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int,
+                         buf: np.ndarray | None, table, bd, nbytes: int,
+                         ngenomes: int, k: int, state: dict | None = None,
+                         capacity: int | None = None, trace: bool = False, *,
                          phase: dict | None = None):
-    """Anchor one sequence's codes (uint8, >= 4 invalid) against the table
-    of `bd` (a BucketedDict whose table is on the compute device).  Yields
+    """Anchor one sequence's codes (uint8, >= 4 invalid) against `table`
+    (bd.device_arrays()'s table, on the compute device; None: bd.table) of
+    the BucketedDict `bd`, with panagram_tpu's parameters.  `buf` is the
+    host staging array of chunk + k - 1 bytes (None: one is made).  Yields
     (start, m, bitmap bytes uint8 [m, nbytes], popc int32 [m], colsums
     int64 [ngenomes]) per chunk of `chunk` positions, in order.  The arrays
     are views of reused buffers, valid until the next item is requested.
-    `phase`, when given, gains seconds under "pack" (the host packing the
-    chunks into their staging buffers) and "copy" (the copy-back of the
-    results: on a CUDA device the card's time between events on the
-    chunk's stream, on the CPU the host's)."""
+
+    `state` and `capacity` size panagram_tpu's run-length transfers (its
+    hints across chromosomes, the run capacity); this engine copies the
+    dense bytes back, so they change nothing here.  trace=True prints each
+    chunk's wait for its results to stderr.  `phase`, when given, gains
+    seconds under "pack" (the host packing the chunks into their staging
+    buffers) and "copy" (the copy-back of the results: on a CUDA device the
+    card's time between events on the chunk's stream, on the CPU the
+    host's)."""
     phase = {} if phase is None else phase
     phase.setdefault("pack", 0.0)
     phase.setdefault("copy", 0.0)
-    table = bd.table
+    if table is None:
+        table = bd.table
+    table = plain_table(table, bd.nbits, getattr(table, "device", "cpu"))
     device = table.device
     cuda = device.type == "cuda"
     L = chunk + k - 1
@@ -156,13 +207,16 @@ def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int, bd,
     stream = torch.cuda.Stream(device) if cuda else None
     if cuda:
         stream.wait_stream(torch.cuda.current_stream(device))
-    buf = np.empty(L, np.uint8)
+    if buf is None or len(buf) < L:
+        buf = np.empty(L, np.uint8)
+    buf = buf[:L]
     pending: deque = deque()
 
     def launch(slot: _Slot):
         ib = slot.inbuf.to(device, non_blocking=True)
-        by, popc, colsums = anchor_chunk(ib[:n4], ib[n4:], L, k, table,
-                                         bd.nbits, bd.cap, bd.nwords, nbytes)
+        by, popc, colsums = _anchor_chunk_padded(ib[:n4], ib[n4:], L, k,
+                                                 table, bd.nbits, bd.cap,
+                                                 bd.nwords, nbytes)
         if cuda:
             slot.copying.record(stream)
         t0 = time.perf_counter()
@@ -175,8 +229,13 @@ def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int, bd,
             phase["copy"] += time.perf_counter() - t0
 
     def finish(start: int, m: int, slot: _Slot):
+        t0 = time.perf_counter()
         if cuda:
             slot.ready.synchronize()
+        if trace:
+            print(f"  drain: start={start} m={m} "
+                  f"wait={1e3 * (time.perf_counter() - t0):.0f}ms",
+                  file=sys.stderr, flush=True)
             phase["copy"] += slot.copying.elapsed_time(slot.ready) / 1e3
         return (start, m, slot.by.numpy()[:m], slot.popc.numpy()[:m],
                 slot.colsums.numpy()[:ngenomes].astype(np.int64))

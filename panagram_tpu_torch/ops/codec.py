@@ -126,7 +126,30 @@ def pack_kmers(codes: torch.Tensor, k: int):
     return torch.where(valid, canon, torch.full_like(canon, SENTINEL)), valid
 
 
-def canonical_kmers(codes, k: int, device="cuda"):
+def unpack_bases(packed: torch.Tensor, nmask: torch.Tensor,
+                 L: int) -> torch.Tensor:
+    """pack_bases_np's (packed uint8 [ceil(L/4)], nmask uint8 [ceil(L/8)])
+    -> codes uint8 [L]: 0-3 for a valid base, 255 for an invalid one, as
+    panagram_tpu.ops.codec.unpack_bases.  On the tensors' device."""
+    p = packed.to(torch.int32)
+    sh4 = torch.arange(0, 8, 2, dtype=torch.int32, device=packed.device)
+    codes = ((p[:, None] >> sh4) & 3).reshape(-1)[:L]
+    m = nmask.to(torch.int32)
+    sh8 = torch.arange(8, dtype=torch.int32, device=nmask.device)
+    bad = ((m[:, None] >> sh8) & 1).reshape(-1)[:L]
+    return torch.where(bad == 1, 255, codes).to(torch.uint8)
+
+
+def pack_kmers_packed(packed: torch.Tensor, nmask: torch.Tensor, L: int,
+                      k: int):
+    """Canonical k-mers of a 2-bit packed sequence (pack_bases_np's layout)
+    -> (canon int64 [L-k+1], valid bool [L-k+1]), an invalid window's canon
+    SENTINEL: panagram_tpu.ops.codec.pack_kmers_packed, here the unpack
+    followed by pack_kmers."""
+    return pack_kmers(unpack_bases(packed, nmask, L), k)
+
+
+def canonical_kmers(codes, k: int, *, device="cuda"):
     """numpy uint8 codes -> numpy (canon uint64 with invalid windows zeroed,
     valid bool), the convention of panagram_tpu.ops.codec.canonical_kmers."""
     check_k(k)

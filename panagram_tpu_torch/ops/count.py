@@ -24,8 +24,8 @@ DEFAULT_CHUNK = 1 << 22  # positions per device chunk
 SPILL_CHUNKS = 4         # chunk sets held on the device before a spill
 
 
-def distinct_kmers_chunked(code_arrays, k: int, device="cuda",
-                           chunk: int = DEFAULT_CHUNK) -> np.ndarray:
+def distinct_kmers_chunked(code_arrays, k: int, chunk: int = DEFAULT_CHUNK,
+                           *, device="cuda") -> np.ndarray:
     """Sorted distinct canonical k-mers (numpy uint64) over many sequences
     (a genome); the result of panagram_tpu.ops.count.distinct_kmers_chunked.
     Each sequence is cut into (k-1)-overlapping windows of `chunk`
@@ -59,11 +59,12 @@ def distinct_kmers_chunked(code_arrays, k: int, device="cuda",
     return np.unique(np.concatenate(spilled))
 
 
-def distinct_kmers(codes, k: int, device="cuda") -> np.ndarray:
+def distinct_kmers(codes, k: int, *, device="cuda") -> np.ndarray:
     """Sorted distinct canonical k-mers (numpy uint64) of one sequence,
     empty when it is shorter than k: panagram_tpu.ops.count.distinct_kmers,
     through distinct_kmers_chunked."""
-    return distinct_kmers_chunked([np.asarray(codes, np.uint8)], k, device)
+    return distinct_kmers_chunked([np.asarray(codes, np.uint8)], k,
+                                  device=device)
 
 
 def _counted_unique(keys: torch.Tensor, counts: torch.Tensor):
@@ -89,9 +90,9 @@ def _merge_counted(parts):
     return ks[starts], np.add.reduceat(cs, starts)
 
 
-def counted_kmers_chunked(code_arrays, k: int, device="cuda",
-                          min_count: int = 2,
-                          chunk: int = DEFAULT_CHUNK) -> np.ndarray:
+def counted_kmers_chunked(code_arrays, k: int, min_count: int = 2,
+                          chunk: int = DEFAULT_CHUNK, *,
+                          device="cuda") -> np.ndarray:
     """Sorted distinct canonical k-mers (numpy uint64) that occur at least
     min_count times over many sequences (a FASTQ read set): the result of
     panagram_tpu.ops.count.counted_kmers_chunked, KMC's `-ci` semantics.

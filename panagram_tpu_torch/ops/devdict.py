@@ -38,7 +38,7 @@ from .codec import (
     to_i32,
     u64_np,
 )
-from .lookup import BucketedDict, check_hbm_budget, layout_bytes, mix64_np
+from .lookup import BucketedDict, check_device_budget, layout_bytes, mix64_np
 
 # mix64 of the all-ones key: the pair pack_mix emits for a window with an N
 _SENT_MIX = as_signed64(int(mix64_np(np.array([2**64 - 1], np.uint64))[0]))
@@ -119,8 +119,8 @@ class DeviceDictBuilder:
 
     FLUSH_CHUNKS = 8
 
-    def __init__(self, k: int, ngenomes: int, device, chunk: int = 1 << 22,
-                 capacity_hint: int | None = None):
+    def __init__(self, k: int, ngenomes: int, chunk: int = 1 << 22,
+                 capacity_hint: int | None = None, *, device="cuda"):
         self.k = k
         self.ngenomes = ngenomes
         self.nwords = (ngenomes + 31) // 32
@@ -151,8 +151,8 @@ class DeviceDictBuilder:
         have = 0 if self.keys is None else self.keys.shape[0]
         if cap <= have:
             return
-        check_hbm_budget(0, self.device, "device dictionary builder",
-                         layout_bytes(cap, self.nwords, "sort"))
+        check_device_budget(0, self.device, "device dictionary builder",
+                            layout_bytes(cap, self.nwords, "sort"))
         pad = cap - have
         keys = torch.full((pad,), SENTINEL, dtype=torch.int64,
                           device=self.device)
@@ -264,6 +264,6 @@ class DeviceDictBuilder:
         grouping sort), with no host copy."""
         n = self.synced_count()
         return BucketedDict.build_device(self.keys, self.masks,
-                                         self.ngenomes, self.k, self.device,
-                                         mixed=True, count=n,
-                                         sorted_input=True)
+                                         self.ngenomes, self.k, mixed=True,
+                                         count=n, sorted_input=True,
+                                         device=self.device)

@@ -119,6 +119,11 @@ class PanKmerDict:
     def nwords(self) -> int:
         return self.masks.shape[1]
 
+    @property
+    def nbytes_row(self) -> int:
+        """Bitmap bytes per anchor position: ceil(ngenomes / 8)."""
+        return (self.ngenomes + 7) // 8
+
     def __len__(self):
         return len(self.keys)
 
@@ -140,8 +145,8 @@ class PanKmerDict:
         return cls(npz_member(path, "keys", mmap),
                    npz_member(path, "masks", mmap), ngenomes, k, key_space)
 
-    def pairwise_shared(self, device="cuda",
-                        block: int = PAIRWISE_BLOCK) -> np.ndarray:
+    def pairwise_shared(self, block: int = PAIRWISE_BLOCK, *,
+                        device="cuda") -> np.ndarray:
         """Genome x genome shared-distinct-kmer counts, int64 [N, N]: the
         sum over row blocks of bits^T @ bits, in float32 (exact, see
         PAIRWISE_BLOCK) on `device`, accumulated in int64."""
@@ -159,7 +164,7 @@ class PanKmerDict:
 
 
 def build_dictionary(genome_sets: list[np.ndarray], k: int,
-                     ngenomes: int | None = None,
+                     ngenomes: int | None = None, *,
                      device="cuda") -> PanKmerDict:
     """Merge per-genome sorted distinct key sets (numpy uint64; list order
     = genome id) into a PanKmerDict, on `device`."""

@@ -21,11 +21,14 @@ by the device's free memory, ``layout_route``):
 * host: numpy (``BucketedDict.build``) and one upload, when the device
   layout's transients do not fit beside the table.
 
-Two probes return the same rows:
+Two probes return the same rows, each under panagram_tpu's name and
+contract over canonical (or, with pre_mixed, mixed) keys:
 
-* ``bucket_query`` gathers each query's bucket row (plain torch; the fixup
-  and fallback of the merge probe);
-* ``bucket_query_sorted_pre`` sorts the queries by their high word, so each
+* ``bucket_query`` gathers each query's bucket row (plain torch; over split
+  mixed pairs, ``bucket_query_pairs`` is the fixup and fallback of the
+  merge probe);
+* ``bucket_query_sorted`` and, over split mixed pairs in any order,
+  ``bucket_query_sorted_pre`` sort the queries by their high word, so each
   tile of TILE_Q queries reads a narrow window of table rows, and runs the
   ``probe_sorted`` kernel (ops/kernels.py).  Queries whose bucket lies
   outside their tile's window (only with a window narrower than the
@@ -51,6 +54,7 @@ from .codec import (  # noqa: F401  (mix64 re-exported)
     flip64,
     from_u64_np,
     mix64,
+    split64,
     srl,
     u32,
     u64_np,
@@ -191,8 +195,8 @@ def _free_bytes(device, free):
     return torch.cuda.mem_get_info(device)[0]
 
 
-def check_hbm_budget(table_bytes: int, device, what: str = "dictionary",
-                     layout: int = 0, free: int | None = None):
+def check_device_budget(table_bytes: int, device, what: str = "dictionary",
+                        layout: int = 0, free: int | None = None):
     """Raise before allocating when a table of table_bytes, `layout` bytes
     of layout transients (layout_bytes) and ANCHOR_RESERVE_BYTES of chunk
     buffers exceed the free memory of `device`: `free` bytes when given,
@@ -215,7 +219,7 @@ def layout_route(D: int, W: int, device, sorted_input: bool,
     "single" when the one-pass layout's transients fit beside the table,
     else "chunked" for sorted input whose bounded passes fit, else "host";
     raises when the table alone does not fit.  `free` as in
-    check_hbm_budget.  (panagram_tpu also takes the chunked route for any
+    check_device_budget.  (panagram_tpu also takes the chunked route for any
     table of 2^31 or more u32, because its scatter indices are int32;
     torch indexes with int64, so size alone decides nothing here.)"""
     nbits, _, stride = table_geometry(D, W)
@@ -228,8 +232,49 @@ def layout_route(D: int, W: int, device, sorted_input: bool,
         return "single"
     if sorted_input and layout_bytes(D, W, "chunked", piece_rows) <= room:
         return "chunked"
-    check_hbm_budget(table, device, "bucketed dict (host layout)", free=free)
+    check_device_budget(table, device, "bucketed dict (host layout)",
+                        free=free)
     return "host"
+
+
+def check_hbm_budget(D: int, W: int, n_shards: int = 1,
+                     what: str = "dictionary",
+                     device_layout: bool | str = True,
+                     include_table: bool = True, *, device="cuda",
+                     free: int | None = None):
+    """panagram_tpu's capacity guard: raise before allocating when the
+    bucket table of D keys x W mask words, split over n_shards, and its
+    layout's transients do not fit one device.  device_layout True is the
+    sorting device layout, "sorted" and "chunked" those routes (layout_bytes
+    counts each), False a host layout (nothing beside the table);
+    include_table=False checks the transients alone.  The budget is the free
+    memory of `device` (check_device_budget) where panagram_tpu takes 80%
+    of a TPU chip's memory."""
+    if D <= 0:
+        return
+    per_shard = -(-D // max(n_shards, 1))
+    nbits, _, stride = table_geometry(per_shard, W)
+    table = (1 << nbits) * stride * 4 if include_table else 0
+    mode = {True: "sort", "sorted": "sorted", "chunked": "chunked"}.get(
+        device_layout)
+    layout = 0 if mode is None else layout_bytes(per_shard, W, mode)
+    check_device_budget(table, device, what, layout, free)
+
+
+def pad_pow2(keys: np.ndarray, masks: np.ndarray):
+    """SENTINEL-pad numpy (keys uint64 [D], masks uint32 [D] or [D, W]) to
+    the next power-of-two length (at least 2): panagram_tpu's
+    ops.lookup.pad_pow2.  The layouts drop SENTINEL rows."""
+    D = len(keys)
+    P = 1 << max(int(np.ceil(np.log2(max(D, 2)))), 1)
+    if P == D:
+        return keys, masks
+    W = masks.shape[1] if masks.ndim == 2 else 1
+    pk = np.full(P, np.uint64(0xFFFFFFFFFFFFFFFF), np.uint64)
+    pk[:D] = keys
+    pm = np.zeros((P, W), np.uint32)
+    pm[:D] = masks.reshape(D, W)
+    return pk, pm
 
 
 @dataclasses.dataclass
@@ -296,10 +341,21 @@ class BucketedDict:
         view[b_sorted, slot] = rows
         return table, 0
 
+    def device_arrays(self, *, device="cuda"):
+        """(table,): the bucket table as an int32 tensor on the device,
+        panagram_tpu's device_arrays.  A host table (build()) goes up to
+        `device` once and stays there; panagram_tpu's packed-row form is
+        its TPU's tiling, so the table keeps its [B, stride] shape (the
+        probes take either form)."""
+        if isinstance(self.table, np.ndarray):
+            self.table = self.to(device).table
+        return (self.table,)
+
     @classmethod
-    def build_device(cls, keys, masks, ngenomes: int, k: int, device,
+    def build_device(cls, keys, masks, ngenomes: int, k: int,
                      mixed: bool = False, count: int | None = None,
-                     sorted_input: bool = False, free: int | None = None,
+                     min_nbits: int = 2, sorted_input: bool = False, *,
+                     device="cuda", free: int | None = None,
                      piece_rows: int = LAYOUT_PIECE_ROWS) -> "BucketedDict":
         """Device layout with the result of panagram_tpu's build_device:
         the table is laid out on `device` and stays there.
@@ -308,7 +364,7 @@ class BucketedDict:
         with mixed=True, splitmix64-mixed; SENTINEL rows are padding and
         dropped.  masks int32 tensor / numpy uint32 [len(keys), W].
         `count` is the number of real keys (for sizing; default all).
-        sorted_input=True says the keys are sorted in unsigned mixed order
+        The table has at least 2^min_nbits buckets.  sorted_input=True says the keys are sorted in unsigned mixed order
         (requires mixed=True): the layout skips its grouping sort and may
         take the chunked route.  `free` and `piece_rows` as in
         layout_route.  An overflowing bucket retries with one more bucket
@@ -335,6 +391,7 @@ class BucketedDict:
                              masks[:n].cpu().numpy().view(np.uint32),
                              ngenomes, k, mixed=mixed).to(device)
         nbits, cap, stride = table_geometry(D, W)
+        nbits = max(nbits, min_nbits)
         for _ in range(8):
             if route == "chunked":
                 table, overflow = _layout_device_chunked(
@@ -372,7 +429,7 @@ class BucketedDict:
         """The same layout with `table` as an int32 tensor on `device`."""
         t = self.table
         if isinstance(t, np.ndarray):
-            check_hbm_budget(t.nbytes, device, what="bucketed dict")
+            check_device_budget(t.nbytes, device, what="bucketed dict")
             t = torch.from_numpy(np.array(t, np.uint32).view(np.int32))
         return dataclasses.replace(self, table=t.to(device))
 
@@ -542,12 +599,68 @@ def bucket_row(hi: torch.Tensor, nbits: int) -> torch.Tensor:
     return u32(hi) >> (32 - nbits)
 
 
-def bucket_query(mhi: torch.Tensor, mlo: torch.Tensor, table: torch.Tensor,
-                 nbits: int, cap: int, nwords: int) -> torch.Tensor:
+def bucket_query_pairs(mhi: torch.Tensor, mlo: torch.Tensor,
+                       table: torch.Tensor, nbits: int, cap: int,
+                       nwords: int) -> torch.Tensor:
     """Mixed query pairs (int32 [Q] each) -> mask rows int32 [Q, W] by one
     row gather per query.  Misses, all-ones pairs included, give 0."""
     rows = table[bucket_row(mhi, nbits)]
     return kernels.match_slots(rows, mhi, mlo, cap, nwords)
+
+
+def plain_table(table, nbits: int, device) -> torch.Tensor:
+    """A bucket table as int32 [B, stride] on `device`, from a tensor or
+    numpy uint32, plain [B, stride] or panagram_tpu's packed-row
+    [B/pack, stride*pack] (whose row-major reshape is the plain layout: a
+    packed row holds its `pack` buckets in order)."""
+    if isinstance(table, np.ndarray):
+        table = np.ascontiguousarray(table, np.uint32)
+        if not table.flags.writeable:       # e.g. a jax array's view
+            table = table.copy()
+        table = torch.from_numpy(table.view(np.int32))
+    B = 1 << nbits
+    return table.to(device).reshape(B, table.numel() // B)
+
+
+def _mixed_pairs(canon, pre_mixed: bool, table):
+    """Keys int64 [Q] (u64 bits; numpy uint64 goes to the device of a
+    tensor table) -> the (hi, lo) int32 halves of their splitmix64 mix (of
+    the keys themselves when pre_mixed)."""
+    if isinstance(canon, np.ndarray):
+        canon = from_u64_np(canon, getattr(table, "device", "cpu"))
+    return split64(canon if pre_mixed else mix64(canon))
+
+
+def bucket_query(canon: torch.Tensor, table, nbits: int, cap: int,
+                 nwords: int, pre_mixed: bool = False) -> torch.Tensor:
+    """panagram_tpu's gather probe: keys int64 [Q] (u64 bits, canonical or,
+    with pre_mixed, mixed) -> mask rows int32 [Q, W], one bucket row
+    gathered per query.  Misses, SENTINEL windows and the reserved
+    all-ones mixed value give 0.  `table` is plain [B, stride] or
+    packed-row; the probe runs on the keys' device."""
+    mhi, mlo = _mixed_pairs(canon, pre_mixed, table)
+    return bucket_query_pairs(mhi, mlo, plain_table(table, nbits, mhi.device),
+                              nbits, cap, nwords)
+
+
+def bucket_query_sorted(canon: torch.Tensor, table, nbits: int, cap: int,
+                        nwords: int, pre_mixed: bool = False, *,
+                        span: int | None = None,
+                        tile_q: int = TILE_Q) -> torch.Tensor:
+    """panagram_tpu's merge probe, the rows of bucket_query: mix the keys,
+    pad them to a multiple of tile_q with all-ones pairs (which never
+    match), then bucket_query_sorted_pre, whose probe is the probe_sorted
+    kernel on a CUDA device."""
+    mhi, mlo = _mixed_pairs(canon, pre_mixed, table)
+    Q0 = mhi.shape[0]
+    pad = -Q0 % tile_q
+    if pad:
+        ones = mhi.new_full((pad,), -1)
+        mhi, mlo = torch.cat([mhi, ones]), torch.cat([mlo, ones])
+    return bucket_query_sorted_pre(mhi, mlo, None,
+                                   plain_table(table, nbits, mhi.device),
+                                   nbits, cap, nwords, Q0, span=span,
+                                   tile_q=tile_q)
 
 
 @dataclasses.dataclass
@@ -604,13 +717,17 @@ def plan_probe(mhi0: torch.Tensor, mlo0: torch.Tensor, nbits: int,
 
 
 def bucket_query_sorted_pre(mhi0: torch.Tensor, mlo0: torch.Tensor,
-                            table: torch.Tensor, nbits: int, cap: int,
-                            nwords: int, out_len: int,
+                            pos, table: torch.Tensor, nbits: int, cap: int,
+                            nwords: int, out_len: int, *,
                             span: int | None = None,
                             tile_q: int = TILE_Q) -> torch.Tensor:
     """Merge probe of mixed query pairs in any order: mhi0/mlo0 int32 [Qp]
     (all-ones pairs are padding; Qp % tile_q == 0) -> mask rows int32
-    [out_len, W], row i answering query i.  With the default window no
+    [out_len, W].  pos, as in panagram_tpu, is each element's output row:
+    an integer tensor [Qp] holding each row of [0, out_len) once, and pad
+    elements at rows >= out_len, which are dropped.  pos=None is the
+    positional order (element i answers row i) without building it: the
+    inverse permutation is then one scatter.  With the default window no
     value comes back to the host; an explicit `span` counts the queries
     out of their windows and fixes them up, or falls back."""
     Qp = mhi0.shape[0]
@@ -619,13 +736,30 @@ def bucket_query_sorted_pre(mhi0: torch.Tensor, mlo0: torch.Tensor,
     if span is not None:
         idx_out = torch.nonzero(plan.out_span).squeeze(1)
         if idx_out.shape[0] > max(Qp >> 6, tile_q):
-            return bucket_query(mhi0, mlo0, table, nbits, cap,
-                                nwords)[:out_len]
+            rows = bucket_query_pairs(mhi0, mlo0, table, nbits, cap, nwords)
+            return _to_rows(rows, None, pos, out_len)
     rows = kernels.probe_sorted(plan.qhi, plan.qlo, plan.blo, table, nbits,
                                 cap, nwords, plan.span, plan.tile_q)
     if idx_out is not None and idx_out.shape[0]:
-        rows[idx_out] = bucket_query(plan.qhi[idx_out], plan.qlo[idx_out],
-                                     table, nbits, cap, nwords)
-    out = torch.empty_like(rows)
-    out[plan.perm] = rows      # inverse permutation
+        rows[idx_out] = bucket_query_pairs(plan.qhi[idx_out],
+                                           plan.qlo[idx_out], table, nbits,
+                                           cap, nwords)
+    return _to_rows(rows, plan.perm, pos, out_len)
+
+
+def _to_rows(rows: torch.Tensor, perm, pos, out_len: int) -> torch.Tensor:
+    """Scatter rows [Qp, W] to their output rows: element j of `rows` is
+    input element perm[j] (perm None: element j), whose row is pos[that]
+    (pos None: the element's own index).  One scatter; rows >= out_len go
+    to a dropped row."""
+    if pos is None:
+        if perm is None:
+            return rows[:out_len]
+        out = torch.empty_like(rows)
+        out[perm] = rows      # inverse permutation
+        return out[:out_len]
+    tgt = pos.to(torch.int64) if perm is None else pos.to(torch.int64)[perm]
+    tgt = torch.clamp(tgt, max=out_len)
+    out = rows.new_empty(out_len + 1, rows.shape[1])
+    out[tgt] = rows
     return out[:out_len]

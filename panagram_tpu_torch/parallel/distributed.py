@@ -57,11 +57,15 @@ def _mark_done(prefix, stage, pid):
 
 
 def build_index_distributed(samples_or_dir, prefix=None, num_processes=1,
-                            process_id=0, force=False, device="cuda",
-                            **params):
+                            process_id=0, coordinator=None, force=False,
+                            device_dict=False, *, device="cuda", **params):
     """Build as process `process_id` of `num_processes` over a shared
-    filesystem.  Returns the Index in read mode on process 0, None on the
-    others."""
+    filesystem, on `device`.  Returns the Index in read mode on process 0,
+    None on the others.  `coordinator` and `device_dict` are accepted and
+    ignored, as panagram_tpu does with device_dict: this build uses no
+    collective, so it joins no group (panagram_tpu's coordinator starts
+    jax.distributed, which its file-coordinated build does not use
+    either), and it always counts per genome."""
     from ..ops.dictionary import PanKmerDict
     from ..pipeline import (
         _outputs_fresh,
@@ -91,7 +95,7 @@ def build_index_distributed(samples_or_dir, prefix=None, num_processes=1,
             if i % num_processes == process_id
             and index.genomes[n].fasta is not None]
     for name in mine:
-        count_genome(index, name, dev, force=force)
+        count_genome(index, name, force=force, device=dev)
         logger.info(f"[p{process_id}] counted {name}")
     _mark_done(index.prefix, "count", process_id)
 
@@ -100,7 +104,7 @@ def build_index_distributed(samples_or_dir, prefix=None, num_processes=1,
                    for p in range(num_processes)])
         _wait_for([index.kmer_set_fname(n) for n in index.genome_names
                    if index.genomes[n].fasta is not None])
-        build_dict_stage(index, dev, force=force)
+        build_dict_stage(index, force=force, device=dev)
     else:
         _wait_for([index.dict_fname])
 
@@ -113,7 +117,8 @@ def build_index_distributed(samples_or_dir, prefix=None, num_processes=1,
         bucketed = layout_stage(index, PanKmerDict.load(index.dict_fname),
                                 dev)
         for name in todo:
-            anchor_stage(index, name, bucketed)
+            anchor_stage(index, name, force=True, bucketed=bucketed,
+                         device=dev)
             logger.info(f"[p{process_id}] anchored {name}")
         del bucketed
     _mark_done(index.prefix, "anchor", process_id)
@@ -121,6 +126,6 @@ def build_index_distributed(samples_or_dir, prefix=None, num_processes=1,
     if process_id == 0:
         _wait_for([_done_marker(index.prefix, "anchor", p)
                    for p in range(num_processes)])
-        dist_stage(index, None, dev, force=force)
+        dist_stage(index, force=force, device=dev)
         return Index(index.prefix)
     return None

@@ -89,7 +89,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def initialize_distributed(size: int, rank: int, local_size: int,
+def join_mesh(size: int, rank: int, local_size: int,
                            device: torch.device, init_method: str) -> Mesh:
     """Join the process group as `rank` of `size` (NCCL for a CUDA device,
     Gloo for the CPU), create the Gloo control group and, with several
@@ -130,7 +130,7 @@ def barrier(mesh: Mesh):
     dist.barrier(group=mesh.control)
 
 
-def assert_lockstep(mesh: Mesh, tag: str, value):
+def check_lockstep(mesh: Mesh, tag: str, value):
     """Raise on every rank when `value` differs between ranks: a stage-skip
     decision that differs would make the ranks call different collectives.
     A collective: every rank calls it at the same point."""
@@ -149,10 +149,10 @@ def assert_lockstep(mesh: Mesh, tag: str, value):
 
 def lockstep_decision(mesh: Mesh, tag: str, decide):
     """decide() on every rank once the writers' earlier writes are done,
-    checked equal across ranks (assert_lockstep)."""
+    checked equal across ranks (check_lockstep)."""
     barrier(mesh)
     value = decide()
-    assert_lockstep(mesh, tag, value)
+    check_lockstep(mesh, tag, value)
     return value
 
 
@@ -243,7 +243,7 @@ def _rank_main(local_rank: int, fn, args, size: int, local_size: int,
     else:
         device = torch.device(device_type, local_rank)
     rank = process_id * local_size + local_rank
-    mesh = initialize_distributed(size, rank, local_size, device, init_method)
+    mesh = join_mesh(size, rank, local_size, device, init_method)
     try:
         out = fn(mesh, *args)
         peak = 0

@@ -49,7 +49,7 @@ from ..ops.dictionary import PanKmerDict, _merge_sets
 from ..ops.lookup import (
     TILE_Q,
     bucket_query_sorted_pre,
-    check_hbm_budget,
+    check_device_budget,
     layout_bytes,
     layout_rows,
     mix64_np,
@@ -141,15 +141,15 @@ def _local_probe(m: torch.Tensor, table: torch.Tensor, nbits: int, cap: int,
 def _layout_params(total_keys: int, n_shards: int, nwords: int, extra: int,
                    device, mode: str):
     """Per-shard table geometry for total_keys keys over n_shards, with
-    `extra` bucket bits; raises (check_hbm_budget) when a shard's table
+    `extra` bucket bits; raises (check_device_budget) when a shard's table
     and its layout of `mode` (ops/lookup.layout_bytes) do not fit."""
     per_shard = max(-(-total_keys // max(n_shards, 1)), 1)
     nbits, cap, stride = table_geometry(per_shard, nwords)
     nbits += extra
-    check_hbm_budget((1 << nbits) * stride * 4, device,
-                     what=f"sharded dict ({n_shards} shards)",
-                     layout=layout_bytes(per_shard, nwords, mode,
-                                         n_buckets=1 << nbits))
+    check_device_budget((1 << nbits) * stride * 4, device,
+                        what=f"sharded dict ({n_shards} shards)",
+                        layout=layout_bytes(per_shard, nwords, mode,
+                                            n_buckets=1 << nbits))
     return nbits, cap, stride
 
 
@@ -170,18 +170,19 @@ def _shard_layout(mesh: Mesh, out_keys: torch.Tensor, out_masks: torch.Tensor,
     raise RuntimeError(f"{what}: bucket overflow persisted")
 
 
-def sharded_build_dictionary(genome_sets, mesh: Mesh, ngenomes: int, k: int):
+def sharded_build_dictionary(genome_sets, mesh: Mesh, ngenomes: int, k: int,
+                             return_host_dict: bool = False):
     """Distributed dictionary build, called by every rank with the same
     genome_sets[g] (numpy u64 distinct canonical keys of genome g; memory
     maps serve, as the rank reads only its slice).  Rank r takes the r-th
     slice of the concatenated (key, genome) pairs, routes them to their
     owners (all_to_all), which merge them and lay out their tables.
-    Returns (this rank's ShardedBucketedDict, the whole dictionary as a
-    PanKmerDict in mixed key space on writer ranks, None on the others).
-    Each shard's keys and masks go to the host and from there to the
-    writers only (gather_rows_to_writers), so no device holds more than
-    its own shard; their rank-order concatenation is sorted in unsigned
-    order."""
+    Returns this rank's ShardedBucketedDict; with return_host_dict=True
+    (the same on every rank) also the whole dictionary as a PanKmerDict in
+    mixed key space on writer ranks, None on the others.  Each shard's
+    keys and masks then go to the host and from there to the writers only
+    (gather_rows_to_writers), so no device holds more than its own shard;
+    their rank-order concatenation is sorted in unsigned order."""
     S, dev = mesh.size, mesh.device
     W = (ngenomes + 31) // 32
     total = int(sum(len(s) for s in genome_sets))
@@ -208,6 +209,8 @@ def sharded_build_dictionary(genome_sets, mesh: Mesh, ngenomes: int, k: int):
     table, nbits, cap, stride = _shard_layout(mesh, out_keys, out_masks, total,
                                               W, "sharded build")
     sbd = ShardedBucketedDict(table, nbits, cap, stride, ngenomes, k, W, S)
+    if not return_host_dict:
+        return sbd
     out_keys, out_masks = out_keys.cpu(), out_masks.cpu()
     keys = gather_rows_to_writers(mesh, out_keys)
     del out_keys
@@ -267,11 +270,14 @@ def shard_dictionary(pan_dict: PanKmerDict, mesh: Mesh) -> ShardedBucketedDict:
 # --------------------------------------------------------------- anchor --
 
 
-def make_halo_chunks(codes: np.ndarray, n_shards: int, k: int, C: int):
-    """Split a sequence's codes into per-rank halo'd slices u8 [S, C + k -
-    1].  Rank d covers positions [d*C, (d+1)*C); code 255 pads past the
-    sequence (N windows: zero masks, stripped by the caller)."""
+def make_halo_chunks(codes: np.ndarray, n_shards: int, k: int,
+                     chunk_per_dev: int | None = None):
+    """Split a sequence's codes into per-rank halo'd slices: returns
+    (u8 [S, C + k - 1], the sequence's positions nk), C = chunk_per_dev or
+    ceil(nk / S).  Rank d covers positions [d*C, (d+1)*C); code 255 pads
+    past the sequence (N windows: zero masks, stripped by the caller)."""
     nk = len(codes) - k + 1
+    C = -(-nk // n_shards) if chunk_per_dev is None else chunk_per_dev
     out = np.full((n_shards, C + k - 1), 255, np.uint8)
     for d in range(n_shards):
         lo = d * C
@@ -279,7 +285,7 @@ def make_halo_chunks(codes: np.ndarray, n_shards: int, k: int, C: int):
             break
         m = min(C, nk - lo)
         out[d, :m + k - 1] = codes[lo:lo + m + k - 1]
-    return out
+    return out, nk
 
 
 def _upload_packed(codes: np.ndarray, device):
@@ -354,8 +360,8 @@ def genome_sharded_anchor_chunk(mesh: Mesh, gsd: GenomeShardedDict,
     C = L - k + 1
     Ppad = -(-C // TILE_Q) * TILE_Q
     hi, lo = kernels.pack_mix(p, n, L, k, Ppad)
-    rows = bucket_query_sorted_pre(hi, lo, gsd.table, gsd.nbits, gsd.cap, Wl,
-                                   C)
+    rows = bucket_query_sorted_pre(hi, lo, None, gsd.table, gsd.nbits,
+                                   gsd.cap, Wl, C)
     popc, colsums = kernels.fused_popcount_colsums(rows, 32 * Wl)
     return kernels.masks_to_bytes(rows, 4 * Wl), all_sum(mesh, popc), colsums
 
@@ -393,7 +399,8 @@ def stream_mesh_chunks(mesh: Mesh, sharded, codes: np.ndarray, nkmers: int,
             bys = gather_to_writers(mesh, by)
             colsums = gather_to_writers(mesh, colsums)
         else:
-            halo = make_halo_chunks(codes[start:start + m + k - 1], S, k, C)
+            halo, _ = make_halo_chunks(codes[start:start + m + k - 1], S, k,
+                                       C)
             by, popc, colsums = sharded_anchor_chunk(mesh, sharded,
                                                      halo[mesh.rank])
             popc = gather_to_writers(mesh, popc)

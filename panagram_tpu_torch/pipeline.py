@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from .distances import write_genome_dist
-from .index import Index
+from .index import _LOG_DATEFMT, _LOG_FORMAT, FASTQ_EXTS, Index, init_logger  # noqa: F401
 from .io.fasta import iter_fasta, seq_to_codes
 from .ops.count import counted_kmers_chunked, distinct_kmers_chunked
 from .ops.devdict import DeviceDictBuilder
@@ -52,6 +52,7 @@ from .parallel.mesh import (
     writes_pieces,
 )
 from .parallel.shard import (
+    ShardedBucketedDict,
     shard_dictionary,
     shard_dictionary_genomes,
     sharded_build_dictionary,
@@ -59,8 +60,6 @@ from .parallel.shard import (
 from .umap_embed import preload as preload_embedding_modules
 
 logger = logging.getLogger(__name__)
-_LOG_FORMAT = "[%(asctime)s %(levelname)s] %(message)s"
-_LOG_DATEFMT = "%Y-%m-%d %H:%M:%S"
 
 # FASTQ reads must hold a k-mer this many times to count (KMC's -ci2)
 FASTQ_MIN_COUNT = 2
@@ -129,8 +128,8 @@ def _timed(items, phase: dict, key: str):
         yield item
 
 
-def count_genome(index: Index, name: str, device: torch.device,
-                 force=False) -> str:
+def count_genome(index: Index, name: str, force=False, *,
+                 device="cuda") -> str:
     """Stage count[g]: distinct canonical k-mers of one genome: every k-mer
     of a FASTA, those seen FASTQ_MIN_COUNT times or more in a FASTQ read
     set.  Logs its phases: parse (reading the sequence file into codes),
@@ -149,12 +148,12 @@ def count_genome(index: Index, name: str, device: torch.device,
     if g.is_fastq:
         codes = _timed((seq_to_codes(seq) for _, seq in _iter_fastq(fasta)),
                        phase, "parse")
-        kmers = counted_kmers_chunked(codes, index.k, device,
-                                      min_count=FASTQ_MIN_COUNT)
+        kmers = counted_kmers_chunked(codes, index.k, FASTQ_MIN_COUNT,
+                                      device=device)
     else:
         codes = _timed((seq_to_codes(seq) for _, seq in iter_fasta(fasta)),
                        phase, "parse")
-        kmers = distinct_kmers_chunked(codes, index.k, device)
+        kmers = distinct_kmers_chunked(codes, index.k, device=device)
     phase["device"] = time.perf_counter() - tp - phase["parse"]
     tp = time.perf_counter()
     tmp = out + f".tmp.{os.getpid()}.npz"
@@ -187,7 +186,7 @@ def _sequence_size_estimate(path) -> int:
     return raw * 4
 
 
-def build_dict_device(index: Index, device: torch.device, force=False) -> str:
+def build_dict_device(index: Index, force=False, *, device="cuda") -> str:
     """Stage dict of --device-dict, in place of count and dict: every
     genome streams through the device-resident builder; no per-genome set
     files, and resume granularity is the whole dictionary."""
@@ -210,7 +209,8 @@ def build_dict_device(index: Index, device: torch.device, force=False) -> str:
     sizes = [_sequence_size_estimate(f) for f in fastas
              if f and os.path.exists(f)]
     hint = int(max(sizes) * 1.5) if sizes else None
-    b = DeviceDictBuilder(index.k, index.ngenomes, device, capacity_hint=hint)
+    b = DeviceDictBuilder(index.k, index.ngenomes, capacity_hint=hint,
+                          device=device)
     phase = {"io": 0.0, "device": 0.0}
     for gid, name in enumerate(index.genome_names):
         g = index.genomes[name]
@@ -261,7 +261,7 @@ def _load_sets(index: Index, mmap: bool = False) -> list[np.ndarray]:
     return sets
 
 
-def build_dict_stage(index: Index, device: torch.device, force=False) -> str:
+def build_dict_stage(index: Index, force=False, *, device="cuda") -> str:
     """Stage dict: merge the per-genome sets (_load_sets)."""
     out = index.dict_fname
     set_files = [index.kmer_set_fname(n) for n in index.genome_names
@@ -294,8 +294,8 @@ def layout_stage(index: Index, pan_dict: PanKmerDict,
     t0 = time.time()
     mixed = pan_dict.key_space == "mixed"
     bd = BucketedDict.build_device(pan_dict.keys, pan_dict.masks,
-                                   index.ngenomes, index.k, device,
-                                   mixed=mixed, sorted_input=mixed)
+                                   index.ngenomes, index.k, mixed=mixed,
+                                   sorted_input=mixed, device=device)
     _sync(device)
     _benchmark(index.prefix, "layout", t0)
     logger.info(f"bucket table: 2^{bd.nbits} buckets x {bd.stride} u32")
@@ -308,15 +308,35 @@ def anchor_outputs(index: Index, name: str) -> list[str]:
                                            for s in index.steps]
 
 
-def anchor_stage(index: Index, name: str, bucketed: BucketedDict | None,
-                 per_stage_logfile=True, mesh=None, sharded=None):
-    """Stage anchor[g], with its log in logs/anchor.<g>.log.txt when
-    per_stage_logfile (a threaded run has no per-anchor log: the package
-    logger is shared by every thread, as panagram_tpu's threaded path).
-    On a mesh every rank calls it with its `sharded` dictionary; only
-    writers log and time the stage."""
+def anchor_stage(index: Index, name: str, pan_dict=None, force=False,
+                 bucketed=None, per_stage_logfile=True, mesh=None,
+                 sharded=None, *, device="cuda"):
+    """Stage anchor[g], skipped when its outputs are fresh unless `force`
+    (on a mesh the decision is checked equal on every rank), with its log
+    in logs/anchor.<g>.log.txt when per_stage_logfile (a threaded run has
+    no per-anchor log: the package logger is shared by every thread, as
+    panagram_tpu's threaded path).  Anchors against `bucketed`, else lays
+    out `pan_dict` (loaded from pandict.npz when None) on `device`.  On a
+    mesh every rank calls it with its `sharded` dictionary; only writers
+    log and time the stage."""
+    g = index.genomes[name]
+    outs = anchor_outputs(index, name)
+    if mesh is not None and sharded_writes_enabled(mesh) \
+            and isinstance(sharded, ShardedBucketedDict):
+        # the stitched bitmap exists only under process 0's prefix: every
+        # process decides on that copy, or a partial rerun desyncs
+        outs = outs[:2] + [g.primary_bitmap_fname(s, mesh.process_index)
+                           for s in index.steps]
+
+    def fresh():
+        return bool(not force and _outputs_fresh(
+            outs, [index.dict_fname, g._fasta_path]))
+
+    if lockstep_decision(mesh, f"anchor-skip:{name}", fresh) \
+            if mesh is not None else fresh():
+        return
     if mesh is not None and not mesh.writer:
-        index.genomes[name].run_anchor(mesh=mesh, sharded=sharded)
+        g.run_anchor(mesh=mesh, sharded=sharded, device=device)
         return
     t0 = time.time()
     handler = None
@@ -327,7 +347,8 @@ def anchor_stage(index: Index, name: str, bucketed: BucketedDict | None,
         handler.setFormatter(logging.Formatter(_LOG_FORMAT, _LOG_DATEFMT))
         pkg.addHandler(handler)
     try:
-        index.genomes[name].run_anchor(bucketed, mesh, sharded)
+        g.run_anchor(pan_dict, bucketed=bucketed, mesh=mesh, sharded=sharded,
+                     device=device)
     finally:
         if handler is not None:
             pkg.removeHandler(handler)
@@ -335,15 +356,15 @@ def anchor_stage(index: Index, name: str, bucketed: BucketedDict | None,
     _benchmark(index.prefix, f"anchor.{name}", t0)
 
 
-def dist_stage(index: Index, pan_dict: PanKmerDict | None,
-               device: torch.device, force=False) -> str:
+def dist_stage(index: Index, pan_dict: PanKmerDict | None = None,
+               force=False, *, device="cuda") -> str:
     out = index.genome_dist_fname
     if not force and _outputs_fresh([out], [index.dict_fname]):
         return out
     t0 = time.time()
     if pan_dict is None:
         pan_dict = PanKmerDict.load(index.dict_fname)
-    write_genome_dist(pan_dict, index.genome_names, out, device)
+    write_genome_dist(pan_dict, index.genome_names, out, device=device)
     _benchmark(index.prefix, "mash.triangle", t0)
     return out
 
@@ -368,7 +389,7 @@ def build_dict_mesh(index: Index, mesh: Mesh, force=False):
     sets = _load_sets(index, mmap=True)
     t1 = time.time()
     sbd, pan = sharded_build_dictionary(sets, mesh, ngenomes=index.ngenomes,
-                                        k=index.k)
+                                        k=index.k, return_host_dict=True)
     del sets
     t2 = time.time()
     if mesh.writer:
@@ -397,10 +418,10 @@ def _mesh_rank(mesh: Mesh, prefix: str, force: bool, strategy: str) -> dict:
     if mesh.writer:
         for name in index.genome_names:
             if index.genomes[name].fasta is not None:
-                count_genome(index, name, dev, force=force)
+                count_genome(index, name, force=force, device=dev)
     if strategy == "genomes":
         if mesh.writer:
-            build_dict_stage(index, dev, force=force)
+            build_dict_stage(index, force=force, device=dev)
         barrier(mesh)
         pan = PanKmerDict.load(index.dict_fname, mmap=not mesh.writer)
         sharded = shard_dictionary_genomes(pan, mesh)
@@ -408,28 +429,17 @@ def _mesh_rank(mesh: Mesh, prefix: str, force: bool, strategy: str) -> dict:
         sharded, pan = build_dict_mesh(index, mesh, force=force)
     dict_peak = (torch.cuda.max_memory_allocated(dev)
                  if dev.type == "cuda" else 0)
-    pieces = strategy == "range" and sharded_writes_enabled(mesh)
     for name in index.anchor_genomes:
-        g = index.genomes[name]
-        outs = anchor_outputs(index, name)
-        if pieces:
-            # the stitched bitmap exists only under process 0's prefix: every
-            # process decides on that copy, or a partial rerun desyncs
-            outs = outs[:2] + [g.primary_bitmap_fname(s, mesh.process_index)
-                               for s in index.steps]
-        skip = lockstep_decision(mesh, f"anchor-skip:{name}", lambda: bool(
-            not force and _outputs_fresh(
-                outs, [index.dict_fname, g._fasta_path])))
-        if not skip:
-            anchor_stage(index, name, None, mesh=mesh, sharded=sharded)
+        anchor_stage(index, name, force=force, mesh=mesh, sharded=sharded,
+                     device=dev)
     if mesh.writer:
-        dist_stage(index, pan, dev, force=force)
+        dist_stage(index, pan, force=force, device=dev)
     return {"dict_peak_bytes": dict_peak}
 
 
 def build_index(samples_or_dir: str, prefix=None, force=False,
-                device="cuda", device_dict=False, mesh_devices=None,
-                mesh_strategy="range", num_processes=1, process_id=0,
+                device_dict=False, mesh_devices=None, mesh_strategy="range",
+                *, device="cuda", num_processes=1, process_id=0,
                 coordinator=None, **params) -> Index:
     """Run the build DAG.  `samples_or_dir` is a samples.tsv (fresh build)
     or an initialized index dir (resume).  device_dict=True counts and
@@ -448,10 +458,9 @@ def build_index(samples_or_dir: str, prefix=None, force=False,
     panagram_tpu does (in write mode on a process of a piece-writing build
     other than 0, whose prefix holds no bitmap)."""
     dev = resolve_device(device)
-    # INFO to stderr unless the process configured logging already (what
-    # panagram_tpu's init_logger does); anchor logs also go to logs/
-    logging.basicConfig(level=logging.INFO, format=_LOG_FORMAT,
-                        datefmt=_LOG_DATEFMT)
+    # INFO to stderr unless the process configured logging already;
+    # anchor logs also go to logs/
+    init_logger()
     if mesh_devices and mesh_strategy not in ("range", "genomes"):
         raise ValueError(f"unknown mesh strategy '{mesh_strategy}'")
     index = Index(samples_or_dir, mode="w", prefix=prefix, **params)
@@ -472,12 +481,12 @@ def build_index(samples_or_dir: str, prefix=None, force=False,
     if index.anchor_genomes:
         preload_embedding_modules()
     if device_dict:
-        build_dict_device(index, dev, force=force)
+        build_dict_device(index, force=force, device=dev)
     else:
         for name in index.genome_names:
             if index.genomes[name].fasta is not None:
-                count_genome(index, name, dev, force=force)
-        build_dict_stage(index, dev, force=force)
+                count_genome(index, name, force=force, device=dev)
+        build_dict_stage(index, force=force, device=dev)
     pan_dict = PanKmerDict.load(index.dict_fname)
 
     todo = [n for n in index.anchor_genomes
@@ -487,16 +496,20 @@ def build_index(samples_or_dir: str, prefix=None, force=False,
     if todo:
         bucketed = layout_stage(index, pan_dict, dev)
         cores = max(int(index.conf.cores or 1), 1)
+        # `todo` holds the stale anchors: force runs each of them
         if cores > 1 and len(todo) > 1:
             with ThreadPoolExecutor(max_workers=cores) as ex:
-                futures = [ex.submit(anchor_stage, index, n, bucketed, False)
+                futures = [ex.submit(anchor_stage, index, n, pan_dict,
+                                     force=True, bucketed=bucketed,
+                                     per_stage_logfile=False, device=dev)
                            for n in todo]
                 for f in futures:
                     f.result()
         else:
             for name in todo:
-                anchor_stage(index, name, bucketed)
+                anchor_stage(index, name, pan_dict, force=True,
+                             bucketed=bucketed, device=dev)
         del bucketed
 
-    dist_stage(index, pan_dict, dev, force=force)
+    dist_stage(index, pan_dict, force=force, device=dev)
     return Index(index.prefix)

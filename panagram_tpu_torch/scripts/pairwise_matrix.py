@@ -20,7 +20,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     index = Index(args.index_dir)
-    shared = PanKmerDict.load(index.dict_fname).pairwise_shared(args.device)
+    shared = PanKmerDict.load(index.dict_fname).pairwise_shared(device=args.device)
     names = list(index.genome_names)
     print("\t" + "\t".join(names))
     for i, n in enumerate(names):

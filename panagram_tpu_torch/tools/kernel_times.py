@@ -5,7 +5,7 @@
 builds a main-path-sized chunk (2^22 positions, k=31, a 1.3e7-key table;
 W=1 with 30 genomes, then W=2 with 40), checks each of the four anchor
 kernels against its plain version and times it, then times one whole
-``ops.anchor.anchor_chunk`` with its inputs on the card and prints it as
+``ops.anchor.anchor_chunk_fast`` with its inputs on the card and prints it as
 one JSON line, ``{"chunk": {...}}``, beside the sum of its kernels: the
 difference is the library operations between the kernels (the queries'
 sort, two gathers, the inverse scatter) and any wait of the host.  It
@@ -181,7 +181,7 @@ def chunk_inputs(dev, ngenomes: int, rng) -> types.SimpleNamespace:
     masks = rng.integers(1, 1 << 32, (len(keys), W), dtype=np.uint64)
     masks[:, -1] &= np.uint64((1 << (ngenomes - 32 * (W - 1))) - 1)
     bd = BucketedDict.build_device(keys, masks.astype(np.uint32), ngenomes, K,
-                                   dev)
+                                   device=dev)
     packed, nmask, _ = pack_bases_np(codes)
     return types.SimpleNamespace(
         L=L, k=K, W=W, ngenomes=ngenomes, nbytes=(ngenomes + 7) // 8, bd=bd,
@@ -232,12 +232,12 @@ def kernel_cases(inp) -> types.SimpleNamespace:
 
 
 def chunk_call(inp):
-    """() -> one whole anchor_chunk on the card's inputs."""
-    from ..ops.anchor import anchor_chunk
+    """() -> one whole anchor_chunk_fast on the card's inputs."""
+    from ..ops.anchor import anchor_chunk_fast
 
     bd = inp.bd
-    return lambda: anchor_chunk(inp.p, inp.n, inp.L, inp.k, bd.table, bd.nbits,
-                                bd.cap, bd.nwords, inp.nbytes)
+    return lambda: anchor_chunk_fast(inp.p, inp.n, bd.table, inp.L, inp.k,
+                                     bd.nbits, bd.cap, bd.nwords, inp.nbytes)
 
 
 def host_syncs(fn) -> bool:
@@ -257,7 +257,7 @@ def host_syncs(fn) -> bool:
 
 
 def chunk_times(inp, flush: Flush, kernel_ms: dict) -> dict:
-    """Times of one whole anchor_chunk beside the sums of its four kernels
+    """Times of one whole anchor_chunk_fast beside the sums of its four kernels
     (kernel_ms: {name: {"warm_ms", "cold_ms"}}).  `host_ms` is the host's
     own time inside one call with the card idle before it: the enqueue
     alone when the call never waits for the card, else the wait as well.

@@ -216,11 +216,11 @@ def test_anchor_lookup_is_the_oracle(rng):
 def test_distinct_kmers_matches_jax(rng, k, length):
     codes = seq_to_codes(random_seq(rng, length, n_frac=0.02))
     want = jax_distinct_kmers(codes, k)
-    got = count.distinct_kmers(codes, k, "cpu")
+    got = count.distinct_kmers(codes, k, device="cpu")
     assert got.dtype == np.uint64 and np.array_equal(got, want)
     assert (len(got) > 0) == (length >= k)
 
 
 def test_distinct_kmers_refuses_bad_k():
     with pytest.raises(ValueError, match="k must be in"):
-        count.distinct_kmers(seq_to_codes("ACGT" * 10), 32, "cpu")
+        count.distinct_kmers(seq_to_codes("ACGT" * 10), 32, device="cpu")

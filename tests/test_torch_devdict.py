@@ -92,7 +92,7 @@ def test_device_dict_to_host_matches_jax(rng, length, chunk):
     want_keys, want_masks = _oracle([genome_kmer_set([s], K) for s in seqs])
 
     jb = jdd.DeviceDictBuilder(K, 5, chunk=chunk)
-    b = devdict.DeviceDictBuilder(K, 5, "cpu", chunk=chunk)
+    b = devdict.DeviceDictBuilder(K, 5, chunk=chunk, device="cpu")
     for gid, s in enumerate(seqs):
         jb.add_sequence(gid, seq_to_codes(s))
         b.add_sequence(gid, seq_to_codes(s))
@@ -109,8 +109,8 @@ def test_device_dict_to_host_matches_jax(rng, length, chunk):
 def test_device_dict_bucketed_matches_jax(rng):
     seqs = [random_seq(rng, 1500, n_frac=0.01) for _ in range(3)]
     jb = jdd.DeviceDictBuilder(K, 40, chunk=512, capacity_hint=1 << 12)
-    b = devdict.DeviceDictBuilder(K, 40, "cpu", chunk=512,
-                                  capacity_hint=1 << 12)
+    b = devdict.DeviceDictBuilder(K, 40, chunk=512, capacity_hint=1 << 12,
+                                  device="cpu")
     for gid, s in zip((0, 17, 39), seqs):
         jb.add_genome(gid, [seq_to_codes(s)])
         b.add_genome(gid, [seq_to_codes(s)])

@@ -58,8 +58,8 @@ def test_counted_kmers_chunked_matches_jax(k):
         want = jax_counted((seq_to_codes(r) for r in reads), k,
                            min_count=min_count, chunk=CHUNK)
         got = count.counted_kmers_chunked((seq_to_codes(r) for r in reads),
-                                          k, "cpu", min_count=min_count,
-                                          chunk=CHUNK)
+                                          k, min_count=min_count,
+                                          chunk=CHUNK, device="cpu")
         assert got.dtype == np.uint64
         assert np.array_equal(got, want), (k, min_count)
     assert len(got) > 0
@@ -73,10 +73,10 @@ def test_counted_kmers_merges_many_spills():
     reads = [random_seq(rng, 150) for _ in range(900)]
     reads += reads[::3]
     got = count.counted_kmers_chunked((seq_to_codes(r) for r in reads), k,
-                                      "cpu", chunk=1 << 10)
+                                      chunk=1 << 10, device="cpu")
     want = jax_counted((seq_to_codes(r) for r in reads), k, chunk=1 << 10)
     assert np.array_equal(got, want)
-    assert count.counted_kmers_chunked(iter([]), k, "cpu").size == 0
+    assert count.counted_kmers_chunked(iter([]), k, device="cpu").size == 0
 
 
 @pytest.mark.parametrize("gz", [False, True])

@@ -22,7 +22,7 @@ from panagram_tpu_torch import index as port_index
 from panagram_tpu_torch.io.fasta import seq_to_codes
 from panagram_tpu_torch.ops import count, devdict, dictionary, kernels, lookup
 from panagram_tpu_torch.ops import anchor as anchor_ops
-from panagram_tpu_torch.ops.anchor import anchor_chunk
+from panagram_tpu_torch.ops.anchor import anchor_chunk_fast
 from panagram_tpu_torch.ops.codec import (
     mix64,
     pack_bases_np,
@@ -33,7 +33,7 @@ from panagram_tpu_torch.ops.codec import (
 from panagram_tpu_torch.ops.lookup import (
     TILE_Q,
     BucketedDict,
-    bucket_query,
+    bucket_query_pairs,
     bucket_query_sorted_pre,
     plan_probe,
 )
@@ -361,23 +361,24 @@ def test_anchor_chunk_matches_oracle(cuda):
     keys, masks = _dict_for(rng, codes, 30)
     bd = BucketedDict.build(keys, masks, 30, K).to(cuda)
     packed, nmask, _ = pack_bases_np(codes)
-    by, popc, cols = anchor_chunk(torch.from_numpy(packed).to(cuda),
-                                  torch.from_numpy(nmask).to(cuda), L, K,
-                                  bd.table, bd.nbits, bd.cap, bd.nwords, 4)
+    by, popc, cols = anchor_chunk_fast(torch.from_numpy(packed).to(cuda),
+                                       torch.from_numpy(nmask).to(cuda),
+                                       bd.table, L, K, bd.nbits, bd.cap,
+                                       bd.nwords, 4)
     torch.cuda.synchronize()
     rows = anchor_np(codes, K, keys, masks)
     P = L - K + 1
-    assert np.array_equal(by.cpu().numpy()[:P], masks_to_bytes_np(rows, 4))
+    assert np.array_equal(by.cpu().numpy(), masks_to_bytes_np(rows, 4))
     bits = np.unpackbits(rows.view(np.uint8), axis=1, bitorder="little")
     assert np.array_equal(popc.cpu().numpy()[:P], bits.sum(axis=1))
     assert np.array_equal(cols.cpu().numpy(), bits.sum(axis=0))
 
     hi, lo = kernels.pack_mix(torch.from_numpy(packed).to(cuda),
                               torch.from_numpy(nmask).to(cuda), L, K, 1 << 16)
-    want = bucket_query(hi, lo, bd.table, bd.nbits, bd.cap, bd.nwords)
+    want = bucket_query_pairs(hi, lo, bd.table, bd.nbits, bd.cap, bd.nwords)
     for span in (8, None):
-        got = bucket_query_sorted_pre(hi, lo, bd.table, bd.nbits, bd.cap,
-                                      bd.nwords, 1 << 16, span=span)
+        got = bucket_query_sorted_pre(hi, lo, None, bd.table, bd.nbits,
+                                      bd.cap, bd.nwords, 1 << 16, span=span)
         assert torch.equal(got, want)
 
 
@@ -395,25 +396,26 @@ def test_default_probe_route_makes_no_host_sync(cuda):
     packed, nmask, _ = pack_bases_np(codes)
     p, n = torch.from_numpy(packed).to(cuda), torch.from_numpy(nmask).to(cuda)
     hi, lo = kernels.pack_mix(p, n, L, K, 1 << 17)
-    want = bucket_query(hi, lo, bd.table, bd.nbits, bd.cap, bd.nwords)
-    ref = anchor_chunk(p, n, L, K, bd.table, bd.nbits, bd.cap, bd.nwords, 4)
+    want = bucket_query_pairs(hi, lo, bd.table, bd.nbits, bd.cap, bd.nwords)
+    ref = anchor_chunk_fast(p, n, bd.table, L, K, bd.nbits, bd.cap,
+                            bd.nwords, 4)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = bucket_query_sorted_pre(hi, lo, bd.table, bd.nbits, bd.cap,
-                                      bd.nwords, 1 << 17)
-        out = anchor_chunk(p, n, L, K, bd.table, bd.nbits, bd.cap, bd.nwords,
-                           4)
+        got = bucket_query_sorted_pre(hi, lo, None, bd.table, bd.nbits,
+                                      bd.cap, bd.nwords, 1 << 17)
+        out = anchor_chunk_fast(p, n, bd.table, L, K, bd.nbits, bd.cap,
+                                bd.nwords, 4)
         with pytest.raises(RuntimeError):
-            bucket_query_sorted_pre(hi, lo, bd.table, bd.nbits, bd.cap,
+            bucket_query_sorted_pre(hi, lo, None, bd.table, bd.nbits, bd.cap,
                                     bd.nwords, 1 << 17, span=8)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
-    narrow = bucket_query_sorted_pre(hi, lo, bd.table, bd.nbits, bd.cap,
-                                     bd.nwords, 1 << 17, span=8)
+    narrow = bucket_query_sorted_pre(hi, lo, None, bd.table, bd.nbits,
+                                     bd.cap, bd.nwords, 1 << 17, span=8)
     assert torch.equal(narrow, want)
 
 
@@ -481,7 +483,7 @@ def test_count_memory_bounded_by_chunk(cuda):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        got = count.distinct_kmers_chunked([codes], K, cuda, chunk=chunk)
+        got = count.distinct_kmers_chunked([codes], K, chunk=chunk, device=cuda)
         torch.cuda.synchronize()
         return torch.cuda.max_memory_allocated() - base, codes, got
 
@@ -490,7 +492,7 @@ def test_count_memory_bounded_by_chunk(cuda):
     long_, codes, got = peak(32)
     assert long_ <= 1.25 * short
     assert long_ < 8 * one
-    want = count.distinct_kmers_chunked([codes], K, "cpu", chunk=chunk)
+    want = count.distinct_kmers_chunked([codes], K, chunk=chunk, device="cpu")
     assert np.array_equal(got, want)
 
 
@@ -517,13 +519,13 @@ def test_build_device_routes_on_card(cuda, ngenomes):
     mixed input through the single, chunked and host routes."""
     rng = np.random.default_rng(ngenomes)
     keys, masks, mp, maskp = _mixed_sorted(rng, 200_000, ngenomes)
-    want = BucketedDict.build_device(keys, masks, ngenomes, K, "cpu")
-    got = BucketedDict.build_device(keys, masks, ngenomes, K, cuda)
+    want = BucketedDict.build_device(keys, masks, ngenomes, K, device="cpu")
+    got = BucketedDict.build_device(keys, masks, ngenomes, K, device=cuda)
     assert torch.equal(got.table.cpu(), want.table)
 
     D, W = len(keys), maskp.shape[1]
-    want = BucketedDict.build_device(mp, maskp, ngenomes, K, "cpu", mixed=True,
-                                     count=D, sorted_input=True)
+    want = BucketedDict.build_device(mp, maskp, ngenomes, K, mixed=True,
+                                     count=D, sorted_input=True, device="cpu")
     nbits, _, stride = lookup.table_geometry(D, W)
     fixed = (1 << nbits) * stride * 4 + lookup.ANCHOR_RESERVE_BYTES
     for free, route in (
@@ -532,9 +534,9 @@ def test_build_device_routes_on_card(cuda, ngenomes):
             (fixed, "host")):
         free = free if free is not None else torch.cuda.mem_get_info()[0]
         assert lookup.layout_route(D, W, cuda, True, free, 1 << 14) == route
-        got = BucketedDict.build_device(mp, maskp, ngenomes, K, cuda,
-                                        mixed=True, count=D,
-                                        sorted_input=True, free=free,
+        got = BucketedDict.build_device(mp, maskp, ngenomes, K, mixed=True,
+                                        count=D, sorted_input=True,
+                                        device=cuda, free=free,
                                         piece_rows=1 << 14)
         assert got.table.device.type == "cuda"
         assert torch.equal(got.table.cpu(), want.table), route
@@ -547,7 +549,7 @@ def test_device_dict_on_card(cuda):
     bases = np.array(list("ACGTN"))
     seqs = ["".join(rng.choice(bases, 20_000, p=[0.2475] * 4 + [0.01]))
             for _ in range(40)]
-    builders = [devdict.DeviceDictBuilder(K, 40, dev, chunk=4096)
+    builders = [devdict.DeviceDictBuilder(K, 40, chunk=4096, device=dev)
                 for dev in ("cpu", cuda)]
     before = kernels.launches["pack_mix"]
     for b in builders:
@@ -583,7 +585,7 @@ def test_fastq_count_on_card_bounded(cuda):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        got = count.counted_kmers_chunked(rs, K, cuda, chunk=chunk)
+        got = count.counted_kmers_chunked(rs, K, chunk=chunk, device=cuda)
         torch.cuda.synchronize()
         return torch.cuda.max_memory_allocated() - base, got
 
@@ -591,7 +593,7 @@ def test_fastq_count_on_card_bounded(cuda):
     rs = reads(32)
     long_, got = peak(rs)
     assert long_ <= 1.25 * short
-    want = count.counted_kmers_chunked(rs, K, "cpu", chunk=chunk)
+    want = count.counted_kmers_chunked(rs, K, chunk=chunk, device="cpu")
     assert len(got) > 0 and np.array_equal(got, want)
 
 
@@ -712,7 +714,7 @@ def test_anchor_lookup_matches_the_bucket_route(cuda):
     canon, _ = pack_kmers(torch.from_numpy(codes).to(cuda), K)
     got = anchor_ops.anchor_lookup(canon, keys_t.to(cuda), masks_t.to(cuda))
     hi, lo = split64(mix64(canon))
-    want = bucket_query(hi, lo, bd.table, bd.nbits, bd.cap, bd.nwords)
+    want = bucket_query_pairs(hi, lo, bd.table, bd.nbits, bd.cap, bd.nwords)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert np.array_equal(got.cpu().numpy().view(np.uint32),

@@ -73,8 +73,8 @@ def test_build_device_matches_jax(rng, ngenomes, space):
         kin, min_ = _mixed_padded(keys, masks)
         args = dict(mixed=True, count=len(keys), sorted_input=True)
         jbd = jl.BucketedDict.build_device(kin, min_, ngenomes, K, **args)
-    bd = lookup.BucketedDict.build_device(kin, min_, ngenomes, K, "cpu",
-                                          **args)
+    bd = lookup.BucketedDict.build_device(kin, min_, ngenomes, K,
+                                          device="cpu", **args)
     assert (bd.nbits, bd.cap, bd.stride, bd.nwords) == \
         (jbd.nbits, jbd.cap, jbd.stride, jbd.nwords)
     assert bd.table.dtype == torch.int32
@@ -82,7 +82,8 @@ def test_build_device_matches_jax(rng, ngenomes, space):
     assert np.array_equal(_port_table(bd), _jax_table(jbd))
     # tensors in, as the device dictionary builder passes them
     again = lookup.BucketedDict.build_device(
-        from_u64_np(kin, "cpu"), _i32(min_), ngenomes, K, "cpu", **args)
+        from_u64_np(kin, "cpu"), _i32(min_), ngenomes, K, device="cpu",
+        **args)
     assert torch.equal(again.table, bd.table)
 
 
@@ -97,7 +98,7 @@ def test_build_device_retries_to_jax_nbits(rng, monkeypatch):
     monkeypatch.setattr(jl, "table_geometry", tight)
     monkeypatch.setattr(lookup, "table_geometry", tight)
     jbd = jl.BucketedDict.build_device(keys, masks, 30, K)
-    bd = lookup.BucketedDict.build_device(keys, masks, 30, K, "cpu")
+    bd = lookup.BucketedDict.build_device(keys, masks, 30, K, device="cpu")
     assert bd.nbits == jbd.nbits > 4
     assert np.array_equal(_port_table(bd), _jax_table(jbd))
 
@@ -199,14 +200,14 @@ def test_layout_route_by_free_memory(rng):
                        (fixed, "host")):
         assert route(len(keys), 1, "cpu", True, free, piece_rows=256) == want
         bd = lookup.BucketedDict.build_device(
-            mp, maskp, 30, K, "cpu", mixed=True, count=len(keys),
-            sorted_input=True, free=free, piece_rows=256)
+            mp, maskp, 30, K, mixed=True, count=len(keys),
+            sorted_input=True, device="cpu", free=free, piece_rows=256)
         tables.append(bd.table)
     assert all(torch.equal(t, tables[0]) for t in tables[1:])
     with pytest.raises(RuntimeError, match="bucketed dict"):
-        lookup.BucketedDict.build_device(mp, maskp, 30, K, "cpu", mixed=True,
+        lookup.BucketedDict.build_device(mp, maskp, 30, K, mixed=True,
                                          count=len(keys), sorted_input=True,
-                                         free=fixed - 1)
+                                         device="cpu", free=fixed - 1)
 
 
 def test_layout_bytes_counts_the_port_transients():

@@ -27,7 +27,7 @@ from panagram_tpu_torch.config import IndexConfig, dump_yaml, load_yaml
 from panagram_tpu_torch.io.bgzf import BgzfReader, BgzfWriter, build_gzi
 from panagram_tpu_torch.io.fasta import seq_to_codes
 from panagram_tpu_torch.ops import lookup
-from panagram_tpu_torch.ops.anchor import anchor_chunk
+from panagram_tpu_torch.ops.anchor import _anchor_chunk_padded, anchor_chunk_fast
 from panagram_tpu_torch.ops.codec import (
     canonical_kmers,
     from_u64_np,
@@ -63,7 +63,7 @@ def test_mix64_matches_jax(rng):
 def test_canonical_kmers_match_jax(rng, k):
     codes = seq_to_codes(random_seq(rng, 3000, n_frac=0.02))
     want_c, want_v = jax_canonical_kmers(codes, k)
-    got_c, got_v = canonical_kmers(codes, k, "cpu")
+    got_c, got_v = canonical_kmers(codes, k, device="cpu")
     assert got_c.dtype == np.uint64
     assert np.array_equal(got_v, want_v)
     assert np.array_equal(got_c, np.asarray(want_c))
@@ -73,9 +73,9 @@ def test_distinct_kmers_chunked_matches_jax(rng):
     seqs = [seq_to_codes(s) for s in _genomes(rng, 3, 5000, 0.005)]
     seqs.append(seq_to_codes("ACG"))          # shorter than k: no k-mers
     want = jax_distinct(iter(seqs), K, chunk=1024)
-    got = distinct_kmers_chunked(iter(seqs), K, "cpu", chunk=1024)
+    got = distinct_kmers_chunked(iter(seqs), K, chunk=1024, device="cpu")
     assert got.dtype == np.uint64 and np.array_equal(got, want)
-    assert np.array_equal(distinct_kmers_chunked(iter(seqs), K, "cpu"), want)
+    assert np.array_equal(distinct_kmers_chunked(iter(seqs), K, device="cpu"), want)
 
 
 @pytest.mark.parametrize("ngenomes", [3, 40])
@@ -87,7 +87,7 @@ def test_build_dictionary_and_pairwise_match_jax(rng, ngenomes):
     assert got.keys.dtype == np.uint64 and got.masks.dtype == np.uint32
     assert np.array_equal(got.keys, want.keys)
     assert np.array_equal(got.masks, want.masks)
-    assert np.array_equal(got.pairwise_shared("cpu", block=512),
+    assert np.array_equal(got.pairwise_shared(block=512, device="cpu"),
                           want.pairwise_shared())
 
 
@@ -132,7 +132,8 @@ def test_bucket_table_and_gather_probe_match_jax(rng, ngenomes):
     want = np.asarray(jl.bucket_query(canon, jt, jbd.nbits, jbd.cap, jbd.nwords))
     tbd = conv.to("cpu")
     hi, lo = split64(mix64(from_u64_np(np.asarray(canon), "cpu")))
-    got = lookup.bucket_query(hi, lo, tbd.table, tbd.nbits, tbd.cap, tbd.nwords)
+    got = lookup.bucket_query_pairs(hi, lo, tbd.table, tbd.nbits, tbd.cap,
+                                    tbd.nwords)
     assert np.array_equal(got.numpy().view(np.uint32), want)
     assert np.array_equal(want, anchor_np(codes, K, d.keys, d.masks))
 
@@ -170,14 +171,15 @@ def test_bucket_query_sorted_span_fixup_and_fallback(rng, monkeypatch):
         plan = lookup.plan_probe(hi, lo, bd.nbits, span=8)
         assert int(plan.out_span.sum()) > 0
         calls["probe"] = 0
-        got = lookup.bucket_query_sorted_pre(hi, lo, bd.table, bd.nbits,
+        got = lookup.bucket_query_sorted_pre(hi, lo, None, bd.table, bd.nbits,
                                              bd.cap, bd.nwords, len(q), span=8)
         assert calls["probe"] == (1 if fast else 0)
         assert np.array_equal(got.numpy().view(np.uint32), want)
         # the default window holds every query
         assert int(lookup.plan_probe(hi, lo, bd.nbits).out_span.sum()) == 0
-        dflt = lookup.bucket_query_sorted_pre(hi, lo, bd.table, bd.nbits,
-                                              bd.cap, bd.nwords, len(q))
+        dflt = lookup.bucket_query_sorted_pre(hi, lo, None, bd.table,
+                                              bd.nbits, bd.cap, bd.nwords,
+                                              len(q))
         assert np.array_equal(dflt.numpy().view(np.uint32), want)
 
 
@@ -190,13 +192,17 @@ def test_anchor_chunk_matches_oracle(rng, ngenomes):
     codes = seq_to_codes(seqs[0])
     packed, nmask, L = pack_bases_np(codes)
     nbytes = (ngenomes + 7) // 8
-    by, popc, cols = anchor_chunk(torch.from_numpy(packed),
-                                  torch.from_numpy(nmask), L, K, bd.table,
-                                  bd.nbits, bd.cap, bd.nwords, nbytes)
+    p, n = torch.from_numpy(packed), torch.from_numpy(nmask)
+    by, popc, cols = anchor_chunk_fast(p, n, bd.table, L, K, bd.nbits,
+                                       bd.cap, bd.nwords, nbytes)
     rows = anchor_np(codes, K, d.keys, d.masks)
     P = L - K + 1
-    assert by.shape[0] % lookup.TILE_Q == 0 and not by[P:].any()
-    assert np.array_equal(by.numpy()[:P], masks_to_bytes_np(rows, nbytes))
+    assert by.shape == (P, nbytes) and popc.shape == (P,)
+    assert cols.dtype == torch.int64 and cols.shape == (32 * bd.nwords,)
+    padded = _anchor_chunk_padded(p, n, L, K, bd.table, bd.nbits, bd.cap,
+                                  bd.nwords, nbytes)[0]
+    assert padded.shape[0] % lookup.TILE_Q == 0 and not padded[P:].any()
+    assert np.array_equal(by.numpy(), masks_to_bytes_np(rows, nbytes))
     bits = np.unpackbits(rows.astype("<u4").view(np.uint8), axis=1,
                          bitorder="little")
     assert np.array_equal(popc.numpy()[:P], bits.sum(axis=1))
@@ -212,10 +218,10 @@ def test_hbm_budget_guard(monkeypatch):
     upload; the CPU is not checked."""
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda device=None: (6 << 30, 80 << 30))
-    lookup.check_hbm_budget(2 << 30, "cuda")
+    lookup.check_device_budget(2 << 30, "cuda")
     with pytest.raises(RuntimeError, match="free on cuda"):
-        lookup.check_hbm_budget(4 << 30, "cuda")
-    lookup.check_hbm_budget(1 << 50, "cpu")
+        lookup.check_device_budget(4 << 30, "cuda")
+    lookup.check_device_budget(1 << 50, "cpu")
 
 
 def test_config_yaml_matches_pyyaml():

@@ -96,7 +96,8 @@ def _rank_checks(mesh):
         chunk = C_DEV * mesh.size
         res = {}
         if c["kind"] == "range":
-            sbd, pan = shard.sharded_build_dictionary(c["sets"], mesh, ng, K)
+            sbd, pan = shard.sharded_build_dictionary(c["sets"], mesh, ng, K,
+                                                      return_host_dict=True)
             peer["pan"].append(pan is not None)
             if mesh.writer:
                 res["pan"] = (pan.keys, pan.masks, pan.key_space)

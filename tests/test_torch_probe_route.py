@@ -84,7 +84,8 @@ def test_default_route_equals_gather_and_pallas_under_skew(tables, case,
         jnp.asarray(m), jt, jbd.nbits, jbd.cap, jbd.nwords, pre_mixed=True))
     assert want.any()
     hi, lo = split64(from_u64_np(m, "cpu"))
-    gather = lookup.bucket_query(hi, lo, bd.table, bd.nbits, bd.cap, bd.nwords)
+    gather = lookup.bucket_query_pairs(hi, lo, bd.table, bd.nbits, bd.cap,
+                                       bd.nwords)
     assert np.array_equal(gather.numpy().view(np.uint32), want)
 
     reads = {"n": 0}
@@ -100,11 +101,11 @@ def test_default_route_equals_gather_and_pallas_under_skew(tables, case,
                  "__index__", "__float__"):
         monkeypatch.setattr(torch.Tensor, name,
                             counted(getattr(torch.Tensor, name)))
-    got = lookup.bucket_query_sorted_pre(hi, lo, bd.table, bd.nbits, bd.cap,
-                                         bd.nwords, len(m))
+    got = lookup.bucket_query_sorted_pre(hi, lo, None, bd.table, bd.nbits,
+                                         bd.cap, bd.nwords, len(m))
     assert reads["n"] == 0
     # the patch counts: an explicit window does read back
-    narrow = lookup.bucket_query_sorted_pre(hi, lo, bd.table, bd.nbits,
+    narrow = lookup.bucket_query_sorted_pre(hi, lo, None, bd.table, bd.nbits,
                                             bd.cap, bd.nwords, len(m), span=8)
     assert reads["n"] > 0
     monkeypatch.undo()
