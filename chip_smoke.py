@@ -5,7 +5,8 @@
 2. Builds the CUDA kernels from panagram_tpu_torch/csrc with nvcc (one
    process per source, in parallel).
 3. Kernel phase: at the anchor path's shapes (a 2^22-position chunk, k=31;
-   W=1 with 30 genomes and W=2 with 40) each anchor kernel's output is
+   W=1 with 30 genomes, W=2 with 40, W=3 with 70 and W=4 with 100:
+   KERNEL_GENOMES) each anchor kernel's output is
    compared bit for bit with its plain torch version on the card; so is
    mosaic_probe at n = 1024 and 2^24.  Each kernel is timed on the card's
    own clock (panagram_tpu_torch/tools/kernel_times.py): warm, 50 launches
@@ -41,11 +42,26 @@
    (FASTA parsing, device, npz write) summed over the genomes, the dict
    stage's (npz read, device, npz write), each anchor's (encode, pack,
    wait, copy, write, bins, finish) and the copy-back's share of the
-   anchor stages.
+   anchor stages, which must be above 0.
 6. The device-dict slice: the same genomes through ``--device-dict``.  Its
    pandict.npz must be the slice's dictionary mixed (keys in unsigned mixed
    order), its anchor files byte-identical to the slice's, and pack_mix
    must have run once per sequence chunk in its dict stage.
+6a. The scale100 phase, the repo's 100-genome scale row (tools/
+   scale_run.py --genomes 100 --mbp 2 --k 21 --anchors 2): 100 founder-
+   structured genomes of 2 Mbp (make_genomes, seed 0), W=4 and 13 bitmap
+   bytes per position, k=21, anchors g0 and g1 (one 2^21-position chunk
+   each), through the CLI on the default route and with --device-dict.
+   Every anchor kernel must launch, and --device-dict's dict stage must
+   launch pack_mix once per sequence chunk; each anchor's whole chunk
+   through anchor_chunk_fast must equal the same chunk through the
+   kernels' plain versions on the card (plain_kernels) and bitmap.1.gz,
+   its first 2^17 positions the numpy oracle; the --device-dict dictionary
+   must be the default one mixed and the anchor files byte-identical; the
+   default dict stage must peak under DICT_PEAK_PER_PAIR bytes per pair;
+   the copy-back share must be above 0 on both routes; and the read API
+   must return 100 columns equal to the oracle on a window.  Prints the
+   stage walls, anchor phases, peaks and launches.
 7. The full-index phase: the same genomes plus a FASTQ read set `reads`
    (150-bp reads at 10x of g3, 0.5% substitutions, seed 0) and GFF3 files
    for g0-g2 (a gene every ~5 kbp with one mRNA and four exons, a
@@ -77,7 +93,9 @@
    dictionary mixed), the mesh builds go through ``build_index`` (the
    CLI's call), whose rank must launch each kernel of its path
    (MESH_KERNELS) once per chunk and the others never (the rank's own
-   counts, sent back by parallel.mesh.launch), and ``--mesh 2`` must
+   counts, sent back by parallel.mesh.launch), each anchor's phases line
+   must name only the phases the mesh route times (MESH_PHASES, its host
+   packing above 0), and ``--mesh 2`` must
    raise naming the card count.  Prints each build's wall, its dict and
    anchor stage walls, and the rank's peak device memory beside the
    one-device build's.
@@ -131,7 +149,8 @@
    range-sharded layout (low-bit buckets, "bucket" mode) must hold its
    transients within lookup.layout_bytes and above MODEL_FLOOR of it.
 12. Prints one line per kernel (bytes, bound, share, launches
-   of the slice, library call), the kernels JSON line, the card line, and
+   of the slice, library call), the kernel phase's W=2-4 readings, the
+   kernels JSON line (the W=1 readings), the card line, and
    last {"ok": true, "device": {...}}.  Any failed check raises, so the script
    exits non-zero without that line; so does a machine without CUDA.
 """
@@ -177,9 +196,13 @@ LAYOUT_KEYS = 100_000_000  # layout phase: a ~1e8-key W=1 table
 # must reach: the model may over-count by at most a fifth
 MODEL_FLOOR = 0.8
 MOSAIC_SIZES = (1024, 1 << 24)
+# kernel phase: genomes per chunk case, W = 1, 2, 3 and 4 mask words
+KERNEL_GENOMES = (30, 40, 70, 100)
 # bytes of device memory per (key, genome) pair the one-device dict stage
 # may peak at: the merge's sort holds about 52 (ops/dictionary._merge_sets)
 DICT_PEAK_PER_PAIR = 64
+# the repo's 100-genome scale row (tools/scale_run.py, BASELINE.md): W=4
+SCALE_GENOMES, SCALE_BP, SCALE_K, SCALE_ANCHORS = 100, 2_000_000, 21, ("g0", "g1")
 # the card's device-memory rate (NVIDIA's H100 SXM data sheet)
 MEM_RATE = 3.35e12
 
@@ -283,7 +306,10 @@ def compare(name: str, what: str, kern, plain, shape: dict, flush,
     cold, empty = cold_ms(kern, flush)
     res = {"err": err, "warm_ms": warm_ms(kern), "cold_ms": cold,
            "empty_pair_ms": empty, "old_timer_ms": one_call_ms(kern),
-           "plain_ms": warm_ms(plain, launches=3, runs=3),
+           # one call per reading: a plain version of many small kernels
+           # (fused_popcount_colsums_plain: a few per genome) overflows
+           # the launch queue behind the blocker when several are queued
+           "plain_ms": warm_ms(plain, launches=1, runs=3),
            "bytes": nbytes, "bound_ms": nbytes / MEM_RATE * 1e3,
            "library_ms": None, "library_warm_ms": None}
     res["share"] = res["bound_ms"] / cold
@@ -349,29 +375,36 @@ def write_fasta(path: str, name: str, codes: np.ndarray, width: int = 80):
             f.write(seq[full:].tobytes() + b"\n")
 
 
-def make_genomes(work: str) -> dict:
-    """The founder-structured scale row: 4 founders at 1% divergence from
-    one random base, each genome a founder with 0.1% private variation."""
+def make_genomes(work: str, ngenomes: int | None = None,
+                 bp: int | None = None, keep=None) -> dict:
+    """The founder-structured scale row (seed 0): 4 founders at 1%
+    divergence from one random base, each of `ngenomes` (GENOMES) genomes
+    of `bp` (GENOME_BP) bases a founder with 0.1% private variation,
+    written to work/fa with work/samples.tsv.  Returns the codes of the
+    genomes named in `keep` (the anchors and g3)."""
+    ngenomes = GENOMES if ngenomes is None else ngenomes
+    bp = GENOME_BP if bp is None else bp
+    keep = ANCHORS + ("g3",) if keep is None else keep
     rng = np.random.default_rng(0)
-    base = rng.integers(0, 4, GENOME_BP, dtype=np.uint8)
+    base = rng.integers(0, 4, bp, dtype=np.uint8)
     founders = []
     for _ in range(4):
         mut = base.copy()
-        pos = rng.choice(GENOME_BP, GENOME_BP // 100, replace=False)
+        pos = rng.choice(bp, bp // 100, replace=False)
         mut[pos] = rng.integers(0, 4, len(pos), dtype=np.uint8)
         founders.append(mut)
     os.makedirs(os.path.join(work, "fa"))
     seqs = {}
-    for g in range(GENOMES):
+    for g in range(ngenomes):
         mut = founders[g % 4].copy()
-        pos = rng.choice(GENOME_BP, GENOME_BP // 1000, replace=False)
+        pos = rng.choice(bp, bp // 1000, replace=False)
         mut[pos] = rng.integers(0, 4, len(pos), dtype=np.uint8)
         write_fasta(os.path.join(work, "fa", f"g{g}.fa"), "chr1", mut)
-        if f"g{g}" in ANCHORS + ("g3",):
+        if f"g{g}" in keep:
             seqs[f"g{g}"] = mut
     with open(os.path.join(work, "samples.tsv"), "w") as f:
         f.write("name\tfasta\n")
-        for g in range(GENOMES):
+        for g in range(ngenomes):
             f.write(f"g{g}\tfa/g{g}.fa\n")
     return seqs
 
@@ -528,17 +561,9 @@ def slice_phase(work: str, card: str) -> tuple[dict, dict, int]:
         print(f"  {s:18s}  {walls[s]:9.3f} s", flush=True)
     print("  " + next(m for m in lines.lines if m.startswith("dict phases")),
           flush=True)
-    finish_s = copy_s = 0.0
-    for a in ANCHORS:
-        with open(os.path.join(prefix, "logs", f"anchor.{a}.log.txt")) as f:
-            phases = [line for line in f if "anchor phases:" in line]
-        print(f"  {a} {phases[-1].split('] ', 1)[1].strip()}", flush=True)
-        ph = phase_values(phases[-1].split("anchor phases:")[1])
-        finish_s += ph["finish"]
-        copy_s += ph["copy"]
-    print(f"copy-back of the anchor chunks' results [{card}]: {copy_s:.4f} s "
-          f"of the card's time in {anchor_s:.3f} s of anchor stages (share "
-          f"{copy_s / anchor_s:.4f})", flush=True)
+    phases = anchor_phases(prefix, ANCHORS)
+    finish_s = sum(ph["finish"] for ph in phases.values())
+    copy_share(phases, anchor_s, card)
     print(f"anchored k-mers/s [{card}]: {len(ANCHORS) * nk / anchor_s:.4g} "
           f"over the whole anchor stages ({len(ANCHORS)} x {nk} positions in "
           f"{anchor_s:.3f} s), {len(ANCHORS) * nk / (anchor_s - finish_s):.4g} "
@@ -552,6 +577,34 @@ def phase_values(line: str) -> dict:
     """{name: seconds} of a logged phases line ("... a=0.1s b=0.2s")."""
     return {k: float(v.rstrip("s")) for k, v in
             (w.split("=") for w in line.split() if "=" in w)}
+
+
+def anchor_phases(prefix: str, anchors) -> dict:
+    """{anchor: {phase: seconds}} of the last "anchor phases" line of each
+    anchor's log in a tree; prints each line."""
+    out = {}
+    for a in anchors:
+        with open(os.path.join(prefix, "logs", f"anchor.{a}.log.txt")) as f:
+            line = [ln for ln in f if "anchor phases:" in ln][-1]
+        print(f"  {a} {line.split('] ', 1)[1].strip()}", flush=True)
+        out[a] = phase_values(line.split("anchor phases:")[1])
+    return out
+
+
+def copy_share(phases: dict, anchor_s: float, card: str) -> float:
+    """The copy-back's card time summed over one-device anchor stages
+    (anchor_phases' dict) over their wall `anchor_s`.  Prints it and raises
+    unless it is above 0: the strike of the run-length transfers rests on
+    this share, and a timer that stops adding reads 0."""
+    copy_s = sum(ph.get("copy", 0.0) for ph in phases.values())
+    share = copy_s / anchor_s
+    print(f"copy-back of the anchor chunks' results [{card}]: {copy_s:.6f} s "
+          f"of the card's time in {anchor_s:.3f} s of anchor stages (share "
+          f"{share:.6f})", flush=True)
+    if not share > 0:
+        raise AssertionError("the anchor stages logged no copy-back time "
+                             f"({sorted(next(iter(phases.values())))})")
+    return share
 
 
 class _Lines(logging.Handler):
@@ -633,6 +686,213 @@ def device_dict_phase(work: str, card: str) -> dict:
     phases = [m for m in lines.lines if m.startswith("dict phases:")]
     print(f"  builder: {phases[-1]}", flush=True)
     return launches
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The four anchor kernels' wrappers swapped for their plain torch
+    versions (ops/kernels.py's *_plain) while it is open: the route around
+    them runs as it stands, on the same device, and launches no kernel."""
+    from panagram_tpu_torch.ops import kernels
+
+    saved = {n: getattr(kernels, n) for n in ANCHOR_KERNELS}
+    try:
+        for n in ANCHOR_KERNELS:
+            setattr(kernels, n, getattr(kernels, n + "_plain"))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels, n, fn)
+
+
+def scale100_phase(work: str, card: str, dev) -> dict:
+    """The repo's 100-genome scale row (tools/scale_run.py --genomes 100
+    --mbp 2 --k 21 --anchors 2; BASELINE.md): SCALE_GENOMES founder-
+    structured genomes of SCALE_BP (make_genomes, seed 0), W=4 mask words
+    and 13 bitmap bytes per position, indexed through the CLI with k=21 and
+    anchors g0 and g1 (one 2^21-position chunk each) on the default route
+    and with --device-dict.  Every anchor kernel must launch; each
+    --device-dict dict-stage pack_mix launch is one sequence chunk; each
+    anchor's first ORACLE_POSITIONS positions must equal the numpy oracle
+    and its whole chunk through anchor_chunk_fast on the card's kernels
+    must equal the same chunk through their plain versions (and the
+    bitmap); the --device-dict dictionary must be the default one mixed and
+    the anchor files byte-identical; the default dict stage must peak
+    under DICT_PEAK_PER_PAIR bytes per pair; the copy-back share must be
+    above 0 on both routes; the read API must return SCALE_GENOMES columns
+    equal to the oracle on a window.  Returns the default build's launch
+    counts."""
+    from panagram_tpu_torch import pipeline
+    from panagram_tpu_torch.__main__ import main
+    from panagram_tpu_torch.index import Index
+    from panagram_tpu_torch.io.bgzf import decompress_file
+    from panagram_tpu_torch.ops import kernels
+    from panagram_tpu_torch.ops.anchor import anchor_chunk_fast
+    from panagram_tpu_torch.ops.codec import pack_bases_np
+    from panagram_tpu_torch.ops.dictionary import PanKmerDict, npz_member
+    from panagram_tpu_torch.ops.lookup import BucketedDict, mix64_np
+    from panagram_tpu_torch.ops.ref_impl import anchor_np, masks_to_bytes_np
+
+    work = os.path.join(work, "scale100")
+    N, k, anchors = SCALE_GENOMES, SCALE_K, SCALE_ANCHORS
+    nbytes, nk = (N + 7) // 8, SCALE_BP - k + 1
+    chunk = 1 << max(int(np.ceil(np.log2(nk))), 18)   # index.py's ladder
+    t0 = time.perf_counter()
+    seqs = make_genomes(work, N, SCALE_BP, anchors)
+    print(f"scale100 [{card}]: generated {N} x {SCALE_BP / 1e6:g} Mbp "
+          f"genomes in {time.perf_counter() - t0:.1f} s; k={k}, anchors "
+          f"{', '.join(anchors)}, {nbytes} B per position, {chunk}-position "
+          "chunks", flush=True)
+    samples = os.path.join(work, "samples.tsv")
+    runs = {}
+    for route, stage in (("default", "build_dict_stage"),
+                         ("--device-dict", "build_dict_device")):
+        prefix = os.path.join(work, "idx" if route == "default" else "idx_dd")
+        peaks: list = []
+        real = getattr(pipeline, stage)
+        setattr(pipeline, stage, stage_peaks(real, peaks))
+        lines = _Lines()
+        pkg = logging.getLogger("panagram_tpu_torch")
+        pkg.addHandler(lines)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            main(["index", samples, "-k", str(k), "--prefix", prefix,
+                  "--anchor-genomes", *anchors]
+                 + (["--device-dict"] if route != "default" else []))
+            torch.cuda.synchronize()
+        finally:
+            setattr(pipeline, stage, real)
+            pkg.removeHandler(lines)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        (peak,) = peaks
+        runs[route] = prefix, launches
+        print(f"scale100 {route} build [{card}]: {wall:.2f} s wall, launches "
+              f"{launches}, dict stage peak device memory "
+              f"{peak / 2**30:.3f} GiB", flush=True)
+        for name in ANCHOR_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"scale100 {route}: kernel {name} was "
+                                     "not launched")
+        if route == "default":
+            pairs = sum(len(npz_member(os.path.join(
+                prefix, "kmc", f"g{g}.kmers.npz"), "kmers", mmap=True))
+                for g in range(N))
+            print(f"  dict stage: {pairs} (key, genome) pairs, "
+                  f"{peak / pairs:.1f} B per pair", flush=True)
+            if peak > DICT_PEAK_PER_PAIR * pairs:
+                raise AssertionError(f"scale100: the dict stage peaked at "
+                                     f"{peak / pairs:.1f} B per pair, over "
+                                     f"{DICT_PEAK_PER_PAIR}")
+        else:
+            # the anchor stages launch pack_mix once per chunk, as
+            # probe_sorted; the rest ran in the dict stage, once per
+            # sequence chunk of the DeviceDictBuilder
+            want = N * -(-nk // CHUNK)
+            got = launches["pack_mix"] - launches["probe_sorted"]
+            if got != want:
+                raise AssertionError(f"scale100: pack_mix ran {got} times in "
+                                     f"the device-dict stage, not {want}")
+            print(f"  dict stage: pack_mix launched once per sequence chunk "
+                  f"({got})", flush=True)
+        walls = stage_walls(prefix)
+        count_s = sum(v for st, v in walls.items() if st.startswith("kmc."))
+        anchor_s = sum(walls[f"anchor.{a}"] for a in anchors)
+        print(f"  stage walls [{card}]: "
+              + (f"count ({N} genomes) {count_s:.3f}s " if count_s else "")
+              + " ".join(f"{st}={walls[st]:.3f}s" for st in
+                         ["dict", "layout"] + [f"anchor.{a}" for a in anchors]
+                         + ["mash.triangle"]), flush=True)
+        print("  " + next(m for m in lines.lines
+                          if m.startswith("dict phases")), flush=True)
+        copy_share(anchor_phases(prefix, anchors), anchor_s, card)
+        print(f"  anchored k-mers/s [{card}]: {len(anchors) * nk / anchor_s:.4g}"
+              f" over the whole anchor stages", flush=True)
+
+    ref, dd = runs["default"][0], runs["--device-dict"][0]
+    pan = PanKmerDict.load(os.path.join(ref, "kmc", "pandict.npz"))
+    got = PanKmerDict.load(os.path.join(dd, "kmc", "pandict.npz"))
+    mixed = mix64_np(pan.keys)
+    order = np.argsort(mixed)
+    if pan.nwords != 4 or got.key_space != "mixed" \
+            or not np.array_equal(got.keys, mixed[order]) \
+            or not np.array_equal(got.masks, pan.masks[order]):
+        raise AssertionError("scale100: the --device-dict pandict.npz is not "
+                             "the default dictionary in mixed space")
+    for a in anchors:
+        for f in ("bitmap.1.gz", "bitmap.1.gzi", "bitmap.100.gz",
+                  "bitmap.100.gzi", "chrs.tsv", "bitsum.bins.tsv",
+                  "total_paircounts.csv"):
+            if not filecmp.cmp(os.path.join(dd, "anchor", a, f),
+                               os.path.join(ref, "anchor", a, f),
+                               shallow=False):
+                raise AssertionError(f"scale100: --device-dict anchor/{a}/{f} "
+                                     "differs from the default route's")
+    print(f"scale100: dictionary of {len(pan)} keys x {pan.nwords} words; the "
+          "--device-dict one equals it mixed; the anchor files of both routes "
+          "are byte-identical", flush=True)
+
+    # each anchor's chunk as the stream feeds it, through the card's kernels
+    # and through their plain versions on the card
+    bd = BucketedDict.build_device(pan.keys, pan.masks, N, k, device=dev)
+    print(f"  table 2^{bd.nbits} x {bd.stride} u32 "
+          f"({bd.table.numel() * 4 / 2**20:.0f} MiB), cap {bd.cap}", flush=True)
+    L = chunk + k - 1
+    for a in anchors:
+        buf = np.full(L, 255, np.uint8)
+        buf[:SCALE_BP] = seqs[a]
+        packed, nmask, _ = pack_bases_np(buf)
+        p = torch.from_numpy(packed).to(dev)
+        n = torch.from_numpy(nmask).to(dev)
+
+        def run():
+            return anchor_chunk_fast(p, n, bd.table, L, k, bd.nbits, bd.cap,
+                                     bd.nwords, nbytes)
+
+        kernels.reset_launches()
+        by, popc, cols = run()
+        torch.cuda.synchronize()
+        once = dict(kernels.launches)
+        with plain_kernels():
+            want = run()
+        torch.cuda.synchronize()
+        if any(once[nm] != 1 for nm in ANCHOR_KERNELS) \
+                or kernels.launches != once:
+            raise AssertionError(f"scale100 {a}: launches {once} then "
+                                 f"{kernels.launches} around the plain run")
+        err = max_abs_err((by, popc, cols), want)
+        bits = decompress_file(os.path.join(ref, "anchor", a, "bitmap.1.gz"))
+        if err != 0 or by[:nk].cpu().numpy().tobytes() != bits:
+            raise AssertionError(f"scale100 {a}: the chunk through the "
+                                 f"kernels differs from the plain versions "
+                                 f"(max |err| {err}) or from bitmap.1.gz")
+        rows = anchor_np(seqs[a][:ORACLE_POSITIONS + k - 1], k, pan.keys,
+                         pan.masks)
+        if bits[:ORACLE_POSITIONS * nbytes] != \
+                masks_to_bytes_np(rows, nbytes).tobytes():
+            raise AssertionError(f"scale100 {a}: bitmap differs from the "
+                                 "numpy oracle over its first positions")
+        print(f"  {a}: the {chunk}-position chunk through the four kernels "
+              "equals their plain versions on the card and bitmap.1.gz; its "
+              f"first {ORACLE_POSITIONS} positions equal ref_impl.anchor_np",
+              flush=True)
+    del bd
+    torch.cuda.empty_cache()
+
+    s, e = SCALE_BP // 2, SCALE_BP // 2 + 5000
+    idx = Index(ref)
+    tab = idx.query_bitmap("g0", "chr1", s, e)
+    rows = anchor_np(seqs["g0"][s:e + k - 1], k, pan.keys, pan.masks)
+    want = np.unpackbits(rows.astype("<u4").view(np.uint8), axis=1,
+                         bitorder="little")[:, :N]
+    if tab.values.shape != (e - s, N) or len(tab.columns) != N \
+            or not np.array_equal(tab.values, want):
+        raise AssertionError(f"scale100: query_bitmap g0 chr1 {s}-{e} differs "
+                             "from the numpy oracle")
+    print(f"scale100: Index(prefix).query_bitmap g0 chr1 {s}-{e} returns "
+          f"{len(tab.columns)} columns equal to the numpy oracle", flush=True)
+    return runs["default"][1]
 
 
 def write_reads(path: str, genome: np.ndarray) -> np.ndarray:
@@ -890,11 +1150,8 @@ def full_index_phase(work: str, seqs: dict, card: str, dev) -> dict:
     for st in ["dict", "layout"] + [f"anchor.{a}" for a in ANCHORS] \
             + ["mash.triangle"]:
         print(f"  --cores 1 {st:18s}  {walls1[st]:9.3f} s", flush=True)
-    for a in ANCHORS:
-        with open(os.path.join(p1, "logs", f"anchor.{a}.log.txt")) as f:
-            phases = [line for line in f if "anchor phases:" in line]
-        print(f"  --cores 1 {a} {phases[-1].split('] ', 1)[1].strip()}",
-              flush=True)
+    print("  --cores 1:", flush=True)
+    anchor_phases(p1, ANCHORS)
 
     for name in ANCHOR_KERNELS:
         if launches[name] <= 0 or launches1[name] != launches[name]:
@@ -1426,6 +1683,8 @@ def intros_phase(work: str, card: str):
 MESH_KERNELS = {"range": ["pack_mix", "fused_popcount_colsums",
                           "masks_to_bytes"],
                 "genomes": ANCHOR_KERNELS}
+# the phases a mesh rank's anchor log line names, in order
+MESH_PHASES = ["encode", "pack", "wait", "write", "bins", "finish"]
 
 
 def mesh_phase(work: str, card: str, dev, slice_peak: int) -> dict:
@@ -1482,10 +1741,13 @@ def mesh_phase(work: str, card: str, dev, slice_peak: int) -> dict:
               + " ".join(f"{st}={walls[st]:.3f}s" for st in
                          ["dict"] + [f"anchor.{a}" for a in ANCHORS]),
               flush=True)
-        for a in ANCHORS:
-            with open(os.path.join(prefix, "logs", f"anchor.{a}.log.txt")) as f:
-                phases = [line for line in f if "anchor phases:" in line]
-            print(f"  {a} {phases[-1].split('] ', 1)[1].strip()}", flush=True)
+        for a, ph in anchor_phases(prefix, ANCHORS).items():
+            # the mesh route times the host's packing and keeps no
+            # copy-back apart: its line names no phase nobody timed
+            if list(ph) != MESH_PHASES or not ph["pack"] > 0:
+                raise AssertionError(f"--mesh 1 {strategy} {a}: anchor "
+                                     f"phases {ph}, not {MESH_PHASES} with "
+                                     "pack above 0")
     want = PanKmerDict.load(os.path.join(ref, "kmc", "pandict.npz"))
     got = PanKmerDict.load(os.path.join(work, "idx_mesh_range", "kmc",
                                         "pandict.npz"))
@@ -2129,7 +2391,7 @@ def main():
     rng = np.random.default_rng(1)
     print(f"kernel phase [{card}] (2^22-position chunk, k={K}):", flush=True)
     flush = Flush(dev)
-    measured = {n: kernel_phase(dev, n, rng, flush) for n in (30, 40)}
+    measured = {n: kernel_phase(dev, n, rng, flush) for n in KERNEL_GENOMES}
     mosaic, mosaic_launches = mosaic_phase(dev, flush)
     del flush
 
@@ -2143,6 +2405,8 @@ def main():
         at("slice phase done")
         device_dict_phase(work, card)
         at("device-dict phase done")
+        scale100_phase(work, card, dev)
+        at("scale100 phase done")
         full_index_phase(work, seqs, card, dev)
         at("full-index phase done")
         g0_bits, g0_oracle = read_phase(work, seqs, card)
@@ -2189,6 +2453,18 @@ def main():
                      "warm_ms": m["warm_ms"],
                      "empty_pair_ms": m["empty_pair_ms"],
                      "old_timer_ms": m["old_timer_ms"]})
+    print(f"the anchor kernels at more mask words [{card}] (kernel phase, "
+          "2^22-position chunk, 1.3e7-key table; cold ms, share of bound, "
+          "warm ms):", flush=True)
+    for n in KERNEL_GENOMES[1:]:
+        for name in ANCHOR_KERNELS:
+            m = measured[n][name]
+            print(f"  N={n} W={(n + 31) // 32} {name:24s} cold "
+                  f"{m['cold_ms']:.5f} share {m['share']:.3f} warm "
+                  f"{m['warm_ms']:.5f} plain {m['plain_ms']:.4f}" + (
+                      "" if m["library_ms"] is None else
+                      f" library {m['library_ms']:.5f} cold, "
+                      f"{m['library_warm_ms']:.5f} warm"), flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

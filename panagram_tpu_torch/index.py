@@ -738,14 +738,16 @@ class Genome:
         if self.chrs is None:
             self.init_chrs()
         chunk = self._anchor_chunk()
-        # host seconds per phase of the stage, logged at its end: encode
-        # (FASTA codes), pack (2-bit packing, one-device path), wait (the
-        # rest of each chunk's request: the enqueue and the wait for the
-        # card, or the mesh's collectives), copy (the copy-back, a part of
-        # wait: the card's time on CUDA), write (BGZF), bins, finish (the
-        # embeddings)
-        phase = {"encode": 0.0, "pack": 0.0, "wait": 0.0, "copy": 0.0,
-                 "write": 0.0, "bins": 0.0}
+        # seconds per phase of the stage, logged at its end: encode (FASTA
+        # codes), pack (the host filling and 2-bit packing each chunk's
+        # buffer), wait (the rest of each chunk's request: the enqueue and
+        # the wait for the card, or the mesh's collectives), copy (one
+        # device only: the copy-back, a part of wait, the card's time on
+        # CUDA), write (BGZF), bins, finish (the embeddings)
+        phase = {"encode": 0.0, "pack": 0.0, "wait": 0.0}
+        if mesh is None:
+            phase["copy"] = 0.0
+        phase.update(write=0.0, bins=0.0)
         pieces = False
         if mesh is None:
             from .ops.anchor import stream_anchor_chunks
@@ -763,7 +765,7 @@ class Genome:
 
             def chunks(codes, nkmers):
                 return stream_mesh_chunks(mesh, sharded, codes, nkmers, chunk,
-                                          nbytes, N, k, pieces)
+                                          nbytes, N, k, pieces, phase=phase)
 
             if not mesh.writer:
                 # the collectives of every chunk, nothing written
@@ -890,7 +892,7 @@ class Genome:
             # the stitched bitmap lives under process 0's prefix: nothing
             # here to embed
             logger.info("anchor phases: " + " ".join(
-                f"{name}={v:.3f}s" for name, v in phase.items()))
+                f"{name}={v:.6f}s" for name, v in phase.items()))
             return
         t0 = time.perf_counter()
         self.close()    # readers of an earlier bitmap, if any
@@ -900,7 +902,7 @@ class Genome:
             logger.warning(f"UMAP embedding failed: {e}", exc_info=True)
         phase["finish"] = time.perf_counter() - t0
         logger.info("anchor phases: " + " ".join(
-            f"{name}={v:.3f}s" for name, v in phase.items()))
+            f"{name}={v:.6f}s" for name, v in phase.items()))
 
     def _write_paircounts(self, sums: np.ndarray):
         """total_paircounts.csv: each genome's presence total over this

@@ -232,11 +232,11 @@ def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int,
         t0 = time.perf_counter()
         if cuda:
             slot.ready.synchronize()
+            phase["copy"] += slot.copying.elapsed_time(slot.ready) / 1e3
         if trace:
             print(f"  drain: start={start} m={m} "
                   f"wait={1e3 * (time.perf_counter() - t0):.0f}ms",
                   file=sys.stderr, flush=True)
-            phase["copy"] += slot.copying.elapsed_time(slot.ready) / 1e3
         return (start, m, slot.by.numpy()[:m], slot.popc.numpy()[:m],
                 slot.colsums.numpy()[:ngenomes].astype(np.int64))
 

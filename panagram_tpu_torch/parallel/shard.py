@@ -30,6 +30,7 @@ bodies are not ported (the bytes on disk are the same).
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -288,10 +289,19 @@ def make_halo_chunks(codes: np.ndarray, n_shards: int, k: int,
     return out, nk
 
 
-def _upload_packed(codes: np.ndarray, device):
-    packed, nmask, L = pack_bases_np(codes)
+def _pack(codes: np.ndarray, phase: dict | None = None):
+    """pack_bases_np of a rank's codes; `phase`, when given, gains the
+    host's seconds under "pack"."""
+    t0 = time.perf_counter()
+    packed = pack_bases_np(codes)
+    if phase is not None:
+        phase["pack"] += time.perf_counter() - t0
+    return packed
+
+
+def _upload(packed: np.ndarray, nmask: np.ndarray, device):
     return (torch.from_numpy(packed).to(device),
-            torch.from_numpy(nmask).to(device), L)
+            torch.from_numpy(nmask).to(device))
 
 
 def sharded_anchor_chunk(mesh: Mesh, sbd: ShardedBucketedDict,
@@ -300,8 +310,14 @@ def sharded_anchor_chunk(mesh: Mesh, sbd: ShardedBucketedDict,
     [C + k - 1] is the rank's halo'd slice (make_halo_chunks).  Returns
     (bytes uint8 [C, nbytes], popc int32 [C], colsums int32 [32W]) of its C
     positions, on its device; every rank must call it for the chunk."""
+    return _sharded_rows(mesh, sbd, *_pack(codes_slice))
+
+
+def _sharded_rows(mesh: Mesh, sbd: ShardedBucketedDict, packed, nmask,
+                  L: int):
+    """sharded_anchor_chunk of the rank's slice packed on the host."""
     k, W = sbd.k, sbd.nwords
-    p, n, L = _upload_packed(codes_slice, mesh.device)
+    p, n = _upload(packed, nmask, mesh.device)
     C = L - k + 1
     hi, lo = kernels.pack_mix(p, n, L, k, C)
     m = (u32(hi) << 32) | u32(lo)
@@ -355,8 +371,14 @@ def genome_sharded_anchor_chunk(mesh: Mesh, gsd: GenomeShardedDict,
     Returns (byte slice uint8 [C, 4 * nwords_local], popc int32 [C] summed
     over the ranks, colsums int32 [32 * nwords_local] of the slice's
     genomes), on its device; every rank must call it for the chunk."""
+    return _genome_sharded_rows(mesh, gsd, *_pack(codes))
+
+
+def _genome_sharded_rows(mesh: Mesh, gsd: GenomeShardedDict, packed, nmask,
+                         L: int):
+    """genome_sharded_anchor_chunk of the chunk packed on the host."""
     k, Wl = gsd.k, gsd.nwords_local
-    p, n, L = _upload_packed(codes, mesh.device)
+    p, n = _upload(packed, nmask, mesh.device)
     C = L - k + 1
     Ppad = -(-C // TILE_Q) * TILE_Q
     hi, lo = kernels.pack_mix(p, n, L, k, Ppad)
@@ -373,7 +395,7 @@ def assemble_genome_shards(by_shards: np.ndarray, nbytes: int) -> np.ndarray:
 
 def stream_mesh_chunks(mesh: Mesh, sharded, codes: np.ndarray, nkmers: int,
                        chunk: int, nbytes: int, ngenomes: int, k: int,
-                       pieces: bool = False):
+                       pieces: bool = False, *, phase: dict | None = None):
     """The mesh twin of ops/anchor.stream_anchor_chunks, called by every
     rank: yields (start, m, bytes uint8 [m, nbytes], popc int32 [m],
     colsums int64 [ngenomes]) per chunk of `chunk` positions, in order, on
@@ -385,24 +407,36 @@ def stream_mesh_chunks(mesh: Mesh, sharded, codes: np.ndarray, nkmers: int,
     GenomeShardedDict anchors the whole chunk on every rank.  With pieces
     (range only) the bytes are [(first row in the chunk, rows)] of the
     ranks of the writer's process, gathered within the process, for a
-    piece writer."""
+    piece writer.
+
+    `phase`, when given, gains seconds under "pack": the host filling the
+    chunk's buffer (or the rank's halo'd slice) and packing it, as
+    stream_anchor_chunks counts it.  The results come back through
+    collectives and blocking copies, so no copy-back time of the card's is
+    kept apart."""
+    phase = {} if phase is None else phase
+    phase.setdefault("pack", 0.0)
     S = mesh.size
     genomes = isinstance(sharded, GenomeShardedDict)
     C = chunk if genomes else -(-chunk // S)
     buf = np.full(chunk + k - 1, 255, np.uint8)
     for start in range(0, nkmers, chunk):
         m = min(chunk, nkmers - start)
+        t0 = time.perf_counter()
         if genomes:
             buf[:] = 255
             buf[:m + k - 1] = codes[start:start + m + k - 1]
-            by, popc, colsums = genome_sharded_anchor_chunk(mesh, sharded, buf)
+            phase["pack"] += time.perf_counter() - t0
+            by, popc, colsums = _genome_sharded_rows(
+                mesh, sharded, *_pack(buf, phase))
             bys = gather_to_writers(mesh, by)
             colsums = gather_to_writers(mesh, colsums)
         else:
             halo, _ = make_halo_chunks(codes[start:start + m + k - 1], S, k,
                                        C)
-            by, popc, colsums = sharded_anchor_chunk(mesh, sharded,
-                                                     halo[mesh.rank])
+            phase["pack"] += time.perf_counter() - t0
+            by, popc, colsums = _sharded_rows(
+                mesh, sharded, *_pack(halo[mesh.rank], phase))
             popc = gather_to_writers(mesh, popc)
             all_sum(mesh, colsums)
             bys = gather_to_writers(mesh, by, local=pieces)

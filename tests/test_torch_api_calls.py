@@ -335,6 +335,35 @@ def test_stream_anchor_chunks_positional(table):
             assert np.array_equal(a, b)
 
 
+def test_stream_anchor_chunks_trace_times_the_copy(table, capsys):
+    """trace=True (bench.py's PANAGRAM_BENCH_TRACE) on the CPU: two chunks
+    stream, each drain is printed to stderr, `phase` gains the host's
+    packing and copy-back seconds, and the items equal trace=False's."""
+    codes = table["codes"]
+    bd = table["bd"].to("cpu")
+    k = 21
+    nk = len(codes) - k + 1
+    chunk = -(-nk // 2)
+
+    def run(trace, phase=None):
+        return [(s, m, by.copy(), p.copy(), c.copy())
+                for s, m, by, p, c in anchor.stream_anchor_chunks(
+                    codes, nk, chunk, None, bd.table, bd, 5, 40, k,
+                    trace=trace, phase=phase)]
+
+    want = run(False)
+    phase = {}
+    got = run(True, phase)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g[:2] == w[:2]
+        for a, b in zip(g[2:], w[2:]):
+            assert np.array_equal(a, b)
+    assert set(phase) == {"pack", "copy"}
+    assert phase["copy"] > 0 and phase["pack"] > 0
+    assert capsys.readouterr().err.count("drain: start=") == 2
+
+
 # ------------------------------------------------------ count, dictionary
 
 

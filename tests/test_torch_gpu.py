@@ -190,7 +190,7 @@ def test_pack_mix_from_three_threads(cuda):
     assert kernels.launches["pack_mix"] - before == len(jobs) * calls
 
 
-@pytest.mark.parametrize("ngenomes", [30, 40])
+@pytest.mark.parametrize("ngenomes", [30, 40, 70, 100])
 def test_probe_popcount_bytes_kernels(cuda, ngenomes):
     rng = np.random.default_rng(ngenomes)
     L = (1 << 17) + K - 1
@@ -222,12 +222,12 @@ def test_probe_popcount_bytes_kernels(cuda, ngenomes):
 
 # the shapes at which the two redesigned kernels branch (the CPU tests pin
 # their plain versions against panagram_tpu at the same ones): W with a
-# vector instance (1, 2, 4) and without (5); nbytes that cut nothing, one
-# byte, three bytes, all but one; row counts around the 16-byte pieces, one
-# staged tile and many
-BYTES_GRID = [(W, nb) for W in (1, 2, 4, 5)
+# vector instance (1, 2, 4) and without (3, 5); nbytes that cut nothing,
+# one byte, three bytes, all but one; row counts around the 16-byte pieces,
+# one staged tile and many
+BYTES_GRID = [(W, nb) for W in (1, 2, 3, 4, 5)
               for nb in sorted({1, 4 * W - 3, 4 * W - 1, 4 * W})]
-POPC_GRID = [(1, 30), (1, 32), (2, 40), (4, 100), (5, 130)]
+POPC_GRID = [(1, 30), (1, 32), (2, 40), (3, 70), (4, 100), (5, 130)]
 ROW_COUNTS = [1, 15, 17, 2048, (1 << 17) + 3]
 SKIPS = [0, 1, 3]    # rows[skip:]: 4 W skip bytes into its allocation
 
@@ -417,6 +417,34 @@ def test_default_probe_route_makes_no_host_sync(cuda):
     narrow = bucket_query_sorted_pre(hi, lo, None, bd.table, bd.nbits,
                                      bd.cap, bd.nwords, 1 << 17, span=8)
     assert torch.equal(narrow, want)
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_stream_times_the_copy_back_on_card(cuda, trace):
+    """A two-chunk stream on the card adds the copy-back's card time to
+    phase["copy"] whether or not it traces, and yields the CPU stream's
+    items."""
+    rng = np.random.default_rng(8)
+    chunk = 1 << 16
+    codes = _chunk(rng, 2 * chunk + K - 1)
+    keys, masks = _dict_for(rng, codes, 100)
+    bd = BucketedDict.build(keys, masks, 100, K)
+    nk = len(codes) - K + 1
+
+    def run(on, phase):
+        return [(s, m, by.copy(), p.copy(), c.copy())
+                for s, m, by, p, c in anchor_ops.stream_anchor_chunks(
+                    codes, nk, chunk, None, None, on, 13, 100, K,
+                    trace=trace, phase=phase)]
+
+    phase = {}
+    got = run(bd.to(cuda), phase)
+    want = run(bd.to("cpu"), {})
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g[:2] == w[:2]
+        assert all(np.array_equal(a, b) for a, b in zip(g[2:], w[2:]))
+    assert phase["copy"] > 0 and phase["pack"] > 0
 
 
 @pytest.mark.parametrize("ngenomes", [30, 40, 100])

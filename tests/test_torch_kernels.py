@@ -98,7 +98,8 @@ def _jax_blo_span(qhi, nbits, stride, tile_q):
     return blo, span, pack
 
 
-@pytest.mark.parametrize("ngenomes,ntiles", [(3, 2), (40, 4)])
+@pytest.mark.parametrize("ngenomes,ntiles", [(3, 2), (40, 4), (70, 4),
+                                             (100, 4)])
 def test_probe_sorted_matches_pallas(ngenomes, ntiles):
     rng = np.random.default_rng(7 + ngenomes)
     tile_q = 1024
@@ -150,9 +151,9 @@ def _mask_rows(rng, P, W, N):
 
 
 # the shapes at which the CUDA kernels branch: W with a vector instance (1,
-# 2, 4) and without (5); nbytes that cut nothing (4W), one byte, three
+# 2, 4) and without (3, 5); nbytes that cut nothing (4W), one byte, three
 # bytes, and all but one
-BYTES_GRID = [(W, nb) for W in (1, 2, 4, 5)
+BYTES_GRID = [(W, nb) for W in (1, 2, 3, 4, 5)
               for nb in sorted({1, 4 * W - 3, 4 * W - 1, 4 * W})]
 
 
@@ -177,7 +178,8 @@ def test_masks_to_bytes_matches_numpy_at_ragged_sizes(P):
         assert np.array_equal(got.numpy(), masks_to_bytes_np(rows, nbytes))
 
 
-@pytest.mark.parametrize("W,N", [(1, 30), (1, 32), (2, 40), (4, 100), (5, 130)])
+@pytest.mark.parametrize("W,N", [(1, 30), (1, 32), (2, 40), (3, 70), (4, 100),
+                                 (5, 130)])
 def test_fused_popcount_colsums_grid_matches_jax(W, N):
     """Against the Pallas kernel in interpret mode at P = 4096; the column
     totals also against panagram_tpu's numpy reference rows."""

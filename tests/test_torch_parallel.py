@@ -10,6 +10,8 @@ live at module level, so spawned ranks import them; this module imports no
 jax at its top, so they do not import it either.
 """
 
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -327,6 +329,43 @@ def test_mesh_cli_equals_panagram_tpu_mesh(tmp_path, monkeypatch, ngenomes):
     assert str(mesh["key_space"]) == "mixed"
     assert np.array_equal(mesh["keys"], mix64_np(single["keys"])[order])
     assert np.array_equal(mesh["masks"], single["masks"][order])
+
+
+def _anchor_phases(prefix, genome):
+    """{phase: seconds} of the last "anchor phases:" line of a genome's
+    anchor log."""
+    with open(prefix / "logs" / f"anchor.{genome}.log.txt") as f:
+        line = [ln for ln in f if "anchor phases:" in ln][-1]
+    return {k: float(v.rstrip("s")) for k, v in
+            (w.split("=") for w in line.split("anchor phases:")[1].split())}
+
+
+@pytest.mark.parametrize("strategy", ["range", "genomes"])
+def test_mesh_anchor_phases_are_timed(tmp_path, monkeypatch, caplog,
+                                     strategy):
+    """The anchor-phase line of a Gloo mesh build (`--mesh 2 --device cpu`,
+    1024 positions per chunk) names only phases the mesh route times: the
+    host's packing above 0, and no copy-back, which only the one-device
+    stream keeps apart (its line names it, and it is above 0 there)."""
+    from panagram_tpu_torch import index as port_index
+    from panagram_tpu_torch.__main__ import main as port_main
+
+    caplog.set_level(logging.INFO)     # the in-process build's log files
+    monkeypatch.setenv("PANAGRAM_TPU_CHUNK_LOG2", "10")   # the spawned ranks
+    monkeypatch.setattr(port_index, "ANCHOR_CHUNK", 1 << 10)
+    names, samples = _write_genomes(tmp_path, np.random.default_rng(5), 3,
+                                    20_000)
+    base = ["index", str(samples), "-k", str(K), "--anchor-genomes",
+            names[0], "--device", "cpu"]
+    port_main(base + ["-o", str(tmp_path / "single")])
+    port_main(base + ["-o", str(tmp_path / "mesh"), "--mesh", "2",
+                      "--mesh-strategy", strategy])
+    mesh = _anchor_phases(tmp_path / "mesh", names[0])
+    single = _anchor_phases(tmp_path / "single", names[0])
+    timed = ["encode", "pack", "wait", "write", "bins", "finish"]
+    assert list(mesh) == timed
+    assert list(single) == timed[:3] + ["copy"] + timed[3:]
+    assert mesh["pack"] > 0 and single["pack"] > 0 and single["copy"] > 0
 
 
 def test_mesh_refusals(tmp_path):
