@@ -14,8 +14,10 @@
    launch (the reading of an empty event pair is printed beside it and not
    subtracted); the reading of one call between two events, which holds
    the host's enqueue, is printed beside them.  Its bound is
-   kernels.bound_bytes over MEM_RATE (for probe_sorted the table rows
-   these queries touch are counted on the card): the kernels do integer
+   kernels.bound_bytes over MEM_RATE (for probe_sorted with the table
+   bytes its queries need, kernels.probe_need_bytes, counted on the card;
+   the earlier count, every touched row read whole, is printed beside it
+   with its share, labelled whole rows): the kernels do integer
    work only, for which the data sheet names no peak, and none needs more
    time for it than for its bytes.  The share of the bound is bound / cold
    time.  masks_to_bytes is timed beside the one torch call that computes
@@ -56,7 +58,9 @@
    launch pack_mix once per sequence chunk; each anchor's whole chunk
    through anchor_chunk_fast must equal the same chunk through the
    kernels' plain versions on the card (plain_kernels) and bitmap.1.gz,
-   its first 2^17 positions the numpy oracle; the --device-dict dictionary
+   its first 2^17 positions the numpy oracle (real_probe also holds
+   probe_sorted on g0's chunk to its plain version and prints its hit
+   share, bytes needed and cold time); the --device-dict dictionary
    must be the default one mixed and the anchor files byte-identical; the
    default dict stage must peak under DICT_PEAK_PER_PAIR bytes per pair;
    the copy-back share must be above 0 on both routes; and the read API
@@ -112,7 +116,10 @@
    positionally in panagram_tpu's order, on the card by default) and the
    numpy oracle's over the first 2^17 positions; each op its plain
    version; the histogram the CPU's.  anchor_lookup's and
-   anchor_chunk_fast's warm times per chunk are printed.  Then calls
+   anchor_chunk_fast's warm times per chunk are printed, and real_probe
+   holds probe_sorted on g0's first chunk against the slice's table (W=1)
+   to its plain version and prints its hit share, bytes needed and cold
+   time.  Then calls
    written for panagram_tpu: lookup.bucket_query_sorted on the chunk's
    canonical k-mers must launch probe_sorted once (counts from 0 around
    it) and give bucket_query's, anchor_lookup's and the oracle's rows;
@@ -175,6 +182,7 @@ import torch
 from panagram_tpu_torch.tools.kernel_times import (
     CHUNK,
     K,
+    MEM_RATE,
     Flush,
     chunk_inputs,
     chunk_times,
@@ -182,6 +190,8 @@ from panagram_tpu_torch.tools.kernel_times import (
     host_syncs,
     kernel_cases,
     one_call_ms,
+    probe_case,
+    probe_line,
     warm_ms,
 )
 
@@ -203,8 +213,6 @@ KERNEL_GENOMES = (30, 40, 70, 100)
 DICT_PEAK_PER_PAIR = 64
 # the repo's 100-genome scale row (tools/scale_run.py, BASELINE.md): W=4
 SCALE_GENOMES, SCALE_BP, SCALE_K, SCALE_ANCHORS = 100, 2_000_000, 21, ("g0", "g1")
-# the card's device-memory rate (NVIDIA's H100 SXM data sheet)
-MEM_RATE = 3.35e12
 
 KERNELS = [  # (wrapper, CUDA source, TPU kernel it replaces)
     ("pack_mix", "panagram_tpu_torch/csrc/pack_mix.cu",
@@ -254,13 +262,13 @@ def kernel_phase(dev, ngenomes: int, rng, flush) -> dict:
     kc = kernel_cases(inp)
     print(f"  probe: window of {kc.plan.span} rows (the whole table), "
           f"{int(kc.plan.out_span.sum())} queries out of span, "
-          f"{kc.hit_frac:.3f} of positions hit; {kc.touched} distinct table "
-          f"rows of {bd.stride * 4} B touched by {kc.queries} queries",
+          f"{kc.hit_frac:.3f} of positions hit; {probe_line(kc.probe, bd)}",
           flush=True)
     library = {"masks_to_bytes":
                lambda: library_masks_to_bytes(kc.rows, inp.nbytes)}
+    whole = {"probe_sorted": kc.probe.whole_rows}
     out = {name: compare(name, f"N={ngenomes}", kern, plain, kc.shapes[name],
-                         flush, library.get(name))
+                         flush, library.get(name), whole.get(name))
            for name, (kern, plain) in kc.cases.items()}
     chunk = chunk_times(inp, flush, {
         n: {"warm_ms": r["warm_ms"], "cold_ms": r["cold_ms"]}
@@ -290,9 +298,11 @@ def library_masks_to_bytes(rows, nbytes: int):
 
 
 def compare(name: str, what: str, kern, plain, shape: dict, flush,
-            library=None) -> dict:
+            library=None, whole_rows=None) -> dict:
     """Kernel against plain version on the card (raises unless bit-exact),
-    its times, and its bound at `shape`."""
+    its times, and its bound at `shape`; for probe_sorted also the bound
+    with every touched row read whole (`whole_rows`, bound_bytes'
+    arguments of the earlier count) and its share."""
     from panagram_tpu_torch.ops import kernels
 
     got = kern()
@@ -320,6 +330,14 @@ def compare(name: str, what: str, kern, plain, shape: dict, flush,
     print(f"  {'':24s} {nbytes} B: bound {res['bound_ms']:.5f} ms by bytes, "
           f"share of bound {res['share']:.3f} (less the empty pair "
           f"{res['bound_ms'] / (cold - empty):.3f})", flush=True)
+    if whole_rows is not None:
+        wb = kernels.bound_bytes(name, **whole_rows)
+        res["whole_row_bytes"] = wb
+        res["whole_row_bound_ms"] = wb / MEM_RATE * 1e3
+        res["whole_row_share"] = res["whole_row_bound_ms"] / cold
+        print(f"  {'':24s} whole rows (the earlier count) {wb} B: bound "
+              f"{res['whole_row_bound_ms']:.5f} ms, share "
+              f"{res['whole_row_share']:.3f}", flush=True)
     if library is not None:
         if max_abs_err(library(), want) != 0:
             raise AssertionError(f"{name} ({what}): the library call differs")
@@ -327,6 +345,35 @@ def compare(name: str, what: str, kern, plain, shape: dict, flush,
         res["library_warm_ms"] = warm_ms(library)
         print(f"  {'':24s} library call: warm {res['library_warm_ms']:.5f} ms"
               f"  cold {res['library_ms']:.5f} ms", flush=True)
+    return res
+
+
+def real_probe(what: str, p, n, L: int, k: int, Ppad: int, bd,
+               card: str) -> dict:
+    """probe_sorted on a real chunk, as the anchor stream feeds it: pack_mix
+    of the bases (p, n) against the table bd that the calling phase built.
+    Raises unless bit-exact against the plain version; prints the hit
+    share, the bytes the queries need and the cold time against both
+    bounds.  Its launches fall outside every counted window."""
+    from panagram_tpu_torch.ops import kernels
+
+    hi, lo = kernels.pack_mix(p, n, L, k, Ppad)
+    pc = probe_case(hi, lo, bd)
+    err = max_abs_err((pc.rows,), (kernels.probe_sorted_plain(*pc.args),))
+    if err != 0:
+        raise AssertionError(f"probe_sorted on {what}: kernel differs from "
+                             f"its plain version, max |err| {err}")
+    cold, empty = cold_ms(lambda: kernels.probe_sorted(*pc.args), Flush(p.device))
+    res = {"cold_ms": cold, "hit_share": pc.hit_share,
+           "table_bytes": pc.shape["table_bytes"]}
+    for key, shape in (("bound_ms", pc.shape), ("whole_row_bound_ms",
+                                                pc.whole_rows)):
+        res[key] = kernels.bound_bytes("probe_sorted", **shape) / MEM_RATE * 1e3
+    print(f"  probe_sorted on {what} [{card}]: bit-exact; {probe_line(pc, bd)}"
+          f"; cold {cold:.5f} ms (empty pair {empty:.5f}), share of bound "
+          f"{res['bound_ms'] / cold:.3f}, of the whole-row bound "
+          f"{res['whole_row_bound_ms'] / cold:.3f}", flush=True)
+    torch.cuda.empty_cache()
     return res
 
 
@@ -877,6 +924,9 @@ def scale100_phase(work: str, card: str, dev) -> dict:
               "equals their plain versions on the card and bitmap.1.gz; its "
               f"first {ORACLE_POSITIONS} positions equal ref_impl.anchor_np",
               flush=True)
+        if a == anchors[0]:
+            real_probe(f"scale100's {a} chunk (W={bd.nwords})", p, n, L, k,
+                       chunk, bd, card)
     del bd
     torch.cuda.empty_cache()
 
@@ -2072,6 +2122,8 @@ def api_phase(work: str, seqs: dict, card: str, dev):
           f"positions (searchsorted over {len(pan)} keys), anchor_chunk_fast "
           f"{chunk_ms:.4f} ms ({timer}) on the same chunk", flush=True)
 
+    real_probe(f"the slice's g0 first chunk (W={bd.nwords})", packed, nmask,
+               L, K, CHUNK, bd, card)
     d0 = os.path.join(prefix, "anchor", "g0")
     bitmap = np.frombuffer(decompress_file(os.path.join(d0, "bitmap.1.gz")),
                            np.uint8).reshape(-1, nbytes)
@@ -2439,7 +2491,10 @@ def main():
         print(f"  {name:24s} {m['bytes']} B, bound "
               f"{m['bound_ms']:.5f} ms by bytes; cold "
               f"{m['cold_ms']:.5f} ms (empty pair {m['empty_pair_ms']:.5f}), "
-              f"share of bound {m['share']:.3f}; warm "
+              f"share of bound {m['share']:.3f}" + (
+                  "" if "whole_row_share" not in m else
+                  f" (whole rows: {m['whole_row_bytes']} B, share "
+                  f"{m['whole_row_share']:.3f})") + "; warm "
               f"{m['warm_ms']:.5f} ms; launches {launches[name]}; library "
               "call " + ("none" if m["library_ms"] is None else
                          f"{m['library_ms']:.5f} ms cold, "
@@ -2460,8 +2515,10 @@ def main():
         for name in ANCHOR_KERNELS:
             m = measured[n][name]
             print(f"  N={n} W={(n + 31) // 32} {name:24s} cold "
-                  f"{m['cold_ms']:.5f} share {m['share']:.3f} warm "
-                  f"{m['warm_ms']:.5f} plain {m['plain_ms']:.4f}" + (
+                  f"{m['cold_ms']:.5f} share {m['share']:.3f}" + (
+                      "" if "whole_row_share" not in m else
+                      f" (whole rows {m['whole_row_share']:.3f})")
+                  + f" warm {m['warm_ms']:.5f} plain {m['plain_ms']:.4f}" + (
                       "" if m["library_ms"] is None else
                       f" library {m['library_ms']:.5f} cold, "
                       f"{m['library_warm_ms']:.5f} warm"), flush=True)

@@ -28,8 +28,14 @@ card and what its design does about that; in short:
   reverse for all four, 128-bit stores; the grid is capped and loops.  On
   an NVIDIA H100 80GB HBM3 at 700.00 W: 0.0192-0.0199 ms cold per
   2^22-position chunk, 0.53 of its bound (chip_smoke.py).
-* probe_sorted: bytes (the table rows its queries touch); one warp reads a
-  256-byte row at a time.
+* probe_sorted: bytes, most of them the table's: the key pairs of each row
+  its queries read, as far as the longest scan of the row goes (to a hit,
+  or on a miss to the empty slot that ends the row's keys), and the mask
+  words of each slot hit (probe_need_bytes).  Each query stops at the
+  first hit or empty slot; at W=1 and 2 it loads 64-byte pieces of its
+  row as 16-byte loads issued before any compare, at W=3 and 4 single
+  words.  0.087 / 0.106 / 0.139 / 0.134 ms cold at W=1-4 on the same
+  card, 0.31-0.37 of its bound (tools/kernel_times.py).
 * fused_popcount_colsums: bytes.  128-bit loads, bit-sliced 5-bit column
   counters per thread, and a 32 x 32 bit transpose per warp at each flush
   keep the arithmetic at a few instructions per word.
@@ -38,9 +44,10 @@ card and what its design does about that; in short:
   memory and 16 output bytes gathered per thread.
 * mosaic_probe: bytes; 8 in and 16 out per element, already streaming.
 
-``bound_bytes`` counts, from shapes alone, the bytes each function must
-move; chip_smoke.py and PERF.md hold the measured times against that
-count over the card's memory rate.
+``bound_bytes`` counts the bytes each function must move, from its shapes
+and, for probe_sorted, the table bytes its queries need
+(``probe_need_bytes``); chip_smoke.py and PERF.md hold the measured times
+against that count over the card's memory rate.
 
 u32 data travels as int32 tensors holding the same bits.
 """
@@ -238,11 +245,14 @@ def probe_sorted(qhi: torch.Tensor, qlo: torch.Tensor, blo: torch.Tensor,
     (first table row of each tile's window), table int32 [2^nbits, stride]
     -> rows int32 [Q, W]: query i reads row blo[t] + clamp(bucket - blo[t],
     0, span-1), t = i // tile_q, and emits the W mask words of the slot
-    holding its (hi, lo) pair, or 0."""
+    holding its (hi, lo) pair, or 0.  The table's rows fill from slot 0, as
+    every layout of this package and panagram_tpu's does: the kernel's
+    scan of a row ends at the first all-ones pair."""
     Q = qhi.shape[0]
     B, stride = table.shape
-    if not 1 <= nbits <= 32 or B != 1 << nbits or cap * (2 + nwords) > stride \
-            or not 1 <= span <= B or blo.shape[0] * tile_q < Q:
+    if not 1 <= nbits <= 32 or B != 1 << nbits or nwords < 1 \
+            or cap * (2 + nwords) > stride or not 1 <= span <= B \
+            or blo.shape[0] * tile_q < Q:
         raise ValueError(f"probe_sorted: nbits={nbits} table={tuple(table.shape)} "
                          f"cap={cap} W={nwords} span={span} tile_q={tile_q} "
                          f"Q={Q} tiles={blo.shape[0]}")
@@ -252,15 +262,28 @@ def probe_sorted(qhi: torch.Tensor, qlo: torch.Tensor, blo: torch.Tensor,
     if not _on_card(qhi, qlo, blo, table):
         return probe_sorted_plain(qhi, qlo, blo, table, nbits, cap, nwords,
                                   span, tile_q)
-    dev = qhi.device
-    out = torch.empty(Q, nwords, dtype=torch.int32, device=dev)
+    out = torch.empty(Q, nwords, dtype=torch.int32, device=qhi.device)
+    _probe_sorted_into(qhi, qlo, blo, table, nbits, cap, nwords, span,
+                       tile_q, out)
+    return out
+
+
+def _probe_sorted_into(qhi, qlo, blo, table, nbits: int, cap: int,
+                       nwords: int, span: int, tile_q: int, out):
+    """Launch the kernel into out, a contiguous int32 [Q, W] tensor of the
+    inputs' card; the other arguments are probe_sorted's, checked there."""
+    _need(out, torch.int32, 2, "probe_sorted out")
+    Q = qhi.shape[0]
+    if out.shape != (Q, nwords) or not _on_card(qhi, qlo, blo, table, out):
+        raise ValueError(f"probe_sorted: out {tuple(out.shape)} for Q={Q}, "
+                         f"W={nwords}")
     if Q:
+        dev = qhi.device
         rc = _lib().pg_probe_sorted(qhi.data_ptr(), qlo.data_ptr(),
                                     blo.data_ptr(), table.data_ptr(), Q, nbits,
-                                    cap, nwords, stride, span, tile_q,
+                                    cap, nwords, table.shape[1], span, tile_q,
                                     out.data_ptr(), _stream(dev))
         _launched("probe_sorted", rc, dev)
-    return out
 
 
 def match_slots(rows: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
@@ -285,6 +308,39 @@ def probe_rows(qhi, blo, nbits: int, span: int, tile_q: int) -> torch.Tensor:
     b0 = blo.to(torch.int64)[torch.arange(Q, device=qhi.device) // tile_q]
     bucket = u32(qhi) >> (32 - nbits)
     return b0 + torch.clamp(bucket - b0, 0, span - 1)
+
+
+def probe_need_bytes(qhi, qlo, blo, table, nbits: int, cap: int,
+                     nwords: int, span: int, tile_q: int,
+                     block: int = 1 << 20) -> int:
+    """The table bytes probe_sorted's queries need (its arguments).  A
+    query other than the all-ones pair scans its row's 8-byte key pairs
+    from slot 0 to its hit, or on a miss to the all-ones pair that ends
+    the row's keys (all `cap` of a full row); each distinct row costs the
+    pairs of its longest scan, and each distinct slot hit 4W bytes for its
+    mask words.  Queries are taken `block` at a time."""
+    slot_w = 2 + nwords
+    valid = ~((qhi == -1) & (qlo == -1))
+    qh, ql = qhi[valid], qlo[valid]
+    rows = probe_rows(qhi, blo, nbits, span, tile_q)[valid]
+    urows, inv = torch.unique(rows, return_inverse=True)
+    reach = inv.new_zeros(urows.shape[0])     # pairs of each row's longest scan
+    hits = [inv.new_zeros(0)]
+    for a in range(0, qh.shape[0], block):
+        u = inv[a:a + block]
+        k = table[rows[a:a + block], :cap * slot_w].reshape(-1, cap, slot_w)
+        hit = (k[:, :, 0] == qh[a:a + block, None]) \
+            & (k[:, :, 1] == ql[a:a + block, None])
+        # keys are distinct and fill from slot 0: a scan ends at its hit or
+        # at the first empty slot, reading that slot's pair, else at cap
+        end = hit | ((k[:, :, 0] == -1) & (k[:, :, 1] == -1))
+        n = torch.where(end.any(dim=1), end.to(torch.int8).argmax(dim=1) + 1,
+                        cap)
+        reach.scatter_reduce_(0, u, n, "amax")
+        got = hit.any(dim=1)
+        hits.append(u[got] * cap + hit.to(torch.int8).argmax(dim=1)[got])
+    return 8 * int(reach.sum()) \
+        + 4 * nwords * torch.unique(torch.cat(hits)).numel()
 
 
 def probe_sorted_plain(qhi, qlo, blo, table, nbits: int, cap: int,
@@ -445,11 +501,12 @@ def mosaic_probe_plain(a, b) -> torch.Tensor:
 
 def bound_bytes(name: str, **shape) -> int:
     """The bytes the function `name` must move at a shape: each input read
-    once, each output written once.  Pure arithmetic on the shape:
+    once, each output written once, and of a table only what the queries
+    need.  Pure arithmetic on the shape:
 
     pack_mix               L, k, Ppad
-    probe_sorted           Q, nwords, tile_q, stride, rows_touched (the
-                           distinct table rows these queries read)
+    probe_sorted           Q, nwords, tile_q, table_bytes (the table bytes
+                           these queries need: probe_need_bytes)
     fused_popcount_colsums P, W, ngenomes
     masks_to_bytes         P, W, nbytes
     mosaic_probe           n
@@ -460,7 +517,7 @@ def bound_bytes(name: str, **shape) -> int:
     if name == "probe_sorted":
         Q = g("Q")
         return (8 * Q + 4 * -(-Q // g("tile_q")) + 4 * g("nwords") * Q
-                + 4 * g("stride") * g("rows_touched"))
+                + g("table_bytes"))
     if name == "fused_popcount_colsums":
         return 4 * g("P") * g("W") + 4 * g("P") + 4 * g("ngenomes")
     if name == "masks_to_bytes":

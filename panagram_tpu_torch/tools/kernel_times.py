@@ -1,10 +1,13 @@
 """Kernel times on the card's own clock:
 
-    python -m panagram_tpu_torch.tools.kernel_times [--sweep] [--profile [FILE]]
+    python -m panagram_tpu_torch.tools.kernel_times [--genomes N ...] [--sweep]
+        [--profile [FILE]]
 
 builds a main-path-sized chunk (2^22 positions, k=31, a 1.3e7-key table;
-W=1 with 30 genomes, then W=2 with 40), checks each of the four anchor
-kernels against its plain version and times it, then times one whole
+W=1 with 30 genomes, then W=2 with 40, or the --genomes given), checks
+each of the four anchor kernels against its plain version and times it,
+prints probe_sorted's table bytes (those its queries need, and the whole
+rows they touch) with its share of each bound, then times one whole
 ``ops.anchor.anchor_chunk_fast`` with its inputs on the card and prints it as
 one JSON line, ``{"chunk": {...}}``, beside the sum of its kernels: the
 difference is the library operations between the kernels (the queries'
@@ -57,6 +60,8 @@ ANCHOR_KERNELS = ("pack_mix", "probe_sorted", "fused_popcount_colsums",
                   "masks_to_bytes")
 SWEEP_BLOCKS_PER_SM = (2, 4, 8, 16, 32)
 SMS = 132
+# the card's device-memory rate (NVIDIA's H100 SXM data sheet)
+MEM_RATE = 3.35e12
 
 
 def _event():
@@ -174,9 +179,12 @@ def chunk_inputs(dev, ngenomes: int, rng) -> types.SimpleNamespace:
     canon, valid = pack_kmers(torch.from_numpy(codes).to(dev), K)
     keys = u64_np(torch.unique(canon[valid]))
     keys = keys[rng.random(len(keys)) < 0.5]
-    keys = np.unique(np.concatenate(
-        [keys, rng.integers(0, 1 << 62, max(DICT_KEYS - len(keys), 0),
-                            dtype=np.uint64)]))
+    extra = rng.integers(0, 1 << 62, max(DICT_KEYS - len(keys), 0),
+                         dtype=np.uint64)
+    # distinct and sorted on the card (keys < 2^62 sort alike as int64), in
+    # milliseconds: numpy 2's hash-based np.unique takes seconds at this size
+    keys = u64_np(torch.unique(torch.from_numpy(
+        np.concatenate([keys, extra]).view(np.int64)).to(dev)))
     W = (ngenomes + 31) // 32
     masks = rng.integers(1, 1 << 32, (len(keys), W), dtype=np.uint64)
     masks[:, -1] &= np.uint64((1 << (ngenomes - 32 * (W - 1))) - 1)
@@ -189,28 +197,63 @@ def chunk_inputs(dev, ngenomes: int, rng) -> types.SimpleNamespace:
         n=torch.from_numpy(nmask).to(dev))
 
 
-def kernel_cases(inp) -> types.SimpleNamespace:
-    """The four anchor kernels at the chunk's shapes: cases {name: (kernel
-    call, plain call)}, shapes {name: the arguments of kernels.bound_bytes}
-    (for probe_sorted the table rows these queries touch are counted on the
-    card), the probe plan and the share of positions that hit."""
+def probe_case(hi, lo, bd) -> types.SimpleNamespace:
+    """probe_sorted on pack_mix's output (hi, lo) against the table of bd,
+    as bucket_query_sorted_pre calls it with its default window: its
+    arguments and rows, the valid (not all-ones) queries, the distinct
+    rows they touch, the share of valid queries that hit, and the
+    arguments of kernels.bound_bytes with the table bytes these queries
+    need (`shape`) and with every touched row read whole (`whole_rows`,
+    the count before probe_need_bytes)."""
     from ..ops import kernels
     from ..ops.lookup import plan_probe
 
-    p, n, L, bd, W, nbytes = inp.p, inp.n, inp.L, inp.bd, inp.W, inp.nbytes
-    hi, lo = kernels.pack_mix(p, n, L, K, CHUNK)
     plan = plan_probe(hi, lo, bd.nbits)
-    pargs = (plan.qhi, plan.qlo, plan.blo, bd.table, bd.nbits, bd.cap,
-             bd.nwords, plan.span, plan.tile_q)
-    rows = kernels.probe_sorted(*pargs)
-    torch.cuda.synchronize()
+    args = (plan.qhi, plan.qlo, plan.blo, bd.table, bd.nbits, bd.cap,
+            bd.nwords, plan.span, plan.tile_q)
+    rows = kernels.probe_sorted(*args)
     valid = ~((plan.qhi == -1) & (plan.qlo == -1))
     touched = torch.unique(kernels.probe_rows(
         plan.qhi, plan.blo, bd.nbits, plan.span, plan.tile_q)[valid]).numel()
+    queries = int(valid.sum())
+    shape = dict(Q=hi.shape[0], nwords=bd.nwords, tile_q=plan.tile_q,
+                 table_bytes=kernels.probe_need_bytes(*args))
+    return types.SimpleNamespace(
+        plan=plan, args=args, rows=rows, queries=queries, touched=touched,
+        hit_share=int((rows != 0).any(dim=1).sum()) / max(queries, 1),
+        shape=shape,
+        whole_rows=dict(shape, table_bytes=4 * bd.stride * touched))
+
+
+def probe_line(pc, bd) -> str:
+    """probe_case's counts and both byte bounds, as one printed line."""
+    from ..ops import kernels
+
+    need = kernels.bound_bytes("probe_sorted", **pc.shape)
+    whole = kernels.bound_bytes("probe_sorted", **pc.whole_rows)
+    return (f"{pc.queries} valid queries, {pc.hit_share:.4f} of them hit; "
+            f"{pc.touched} distinct rows of {bd.stride * 4} B touched, "
+            f"{pc.shape['table_bytes']} table bytes needed; bytes needed "
+            f"{need} (bound {need / MEM_RATE * 1e3:.5f} ms), whole rows "
+            f"{whole} (bound {whole / MEM_RATE * 1e3:.5f} ms)")
+
+
+def kernel_cases(inp) -> types.SimpleNamespace:
+    """The four anchor kernels at the chunk's shapes: cases {name: (kernel
+    call, plain call)}, shapes {name: the arguments of kernels.bound_bytes}
+    (for probe_sorted with the table bytes its queries need, counted on the
+    card), probe_case's result `probe` and the share of positions that
+    hit."""
+    from ..ops import kernels
+
+    p, n, L, bd, W, nbytes = inp.p, inp.n, inp.L, inp.bd, inp.W, inp.nbytes
+    hi, lo = kernels.pack_mix(p, n, L, K, CHUNK)
+    pc = probe_case(hi, lo, bd)
+    rows, pargs = pc.rows, pc.args
+    torch.cuda.synchronize()
     shapes = {
         "pack_mix": dict(L=L, k=K, Ppad=CHUNK),
-        "probe_sorted": dict(Q=CHUNK, nwords=W, tile_q=plan.tile_q,
-                             stride=bd.stride, rows_touched=touched),
+        "probe_sorted": pc.shape,
         "fused_popcount_colsums": dict(P=CHUNK, W=W, ngenomes=32 * W),
         "masks_to_bytes": dict(P=CHUNK, W=W, nbytes=nbytes),
     }
@@ -226,8 +269,7 @@ def kernel_cases(inp) -> types.SimpleNamespace:
                            lambda: (kernels.masks_to_bytes_plain(rows, nbytes),)),
     }
     return types.SimpleNamespace(
-        cases=cases, shapes=shapes, plan=plan, rows=rows, touched=touched,
-        queries=int(valid.sum()),
+        cases=cases, shapes=shapes, plan=pc.plan, rows=rows, probe=pc,
         hit_frac=float((rows != 0).any(dim=1).float().mean()))
 
 
@@ -317,6 +359,9 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser(prog="panagram_tpu_torch.tools.kernel_times",
                                 description=__doc__.split("\n\n")[0])
+    p.add_argument("--genomes", type=int, nargs="+", default=GENOMES,
+                   metavar="N", help="genomes of each chunk case (W = "
+                   "ceil(N / 32)); default 30 40")
     p.add_argument("--sweep", action="store_true",
                    help="time pack_mix under several grid caps")
     p.add_argument("--profile", nargs="?", const="", metavar="FILE",
@@ -333,9 +378,11 @@ def main(argv=None) -> int:
     print(f"chunk of 2^{CHUNK.bit_length() - 1} positions, k={K}; ms per "
           "call: warm (back to back) / cold (L2 flushed; the empty event "
           "pair is not subtracted)", flush=True)
-    for N in GENOMES:
+    for N in args.genomes:
         inp = chunk_inputs(dev, N, rng)
         kc = kernel_cases(inp)
+        print(f"  N={N} W={inp.W} probe_sorted: {probe_line(kc.probe, inp.bd)}",
+              flush=True)
         times = {}
         for name, (kern, plain) in kc.cases.items():
             same = all(torch.equal(a, b) for a, b in zip(kern(), plain()))
@@ -348,7 +395,7 @@ def main(argv=None) -> int:
                   f"{same}", flush=True)
         print(json.dumps({"chunk": chunk_times(inp, flush, times)}),
               flush=True)
-        if args.sweep and N == GENOMES[0]:
+        if args.sweep and N == args.genomes[0]:
             hi = torch.empty(CHUNK, dtype=torch.int32, device=dev)
             lo = torch.empty_like(hi)
             for per_sm in SWEEP_BLOCKS_PER_SM:
@@ -364,7 +411,7 @@ def main(argv=None) -> int:
             print(f"  pack_mix, k={K - 1} (the instance that reads k): "
                   f"{warm_ms(runtime_k):.5f} / "
                   f"{cold_ms(runtime_k, flush)[0]:.5f} ms", flush=True)
-        if args.profile is not None and N == GENOMES[0]:
+        if args.profile is not None and N == args.genomes[0]:
             rows = profile_chunk(inp)
             if not rows:
                 print("  torch.profiler showed no device time", flush=True)

@@ -220,6 +220,99 @@ def test_probe_popcount_bytes_kernels(cuda, ngenomes):
     assert torch.equal(by, kernels.masks_to_bytes_plain(rows, nbytes))
 
 
+def _edge_dict(rng, W, nbits=6):
+    """Mixed keys and masks for a 2^nbits-bucket table at the layout's
+    geometry for W words: every fourth bucket full (cap keys), the others
+    0..cap keys; bucket 0 holds keys whose lo word is all ones, the last
+    bucket keys whose hi word is all ones.  Returns (keys uint64, masks
+    uint32 [n, W], cap, stride)."""
+    _, cap, stride = lookup.table_geometry(1, W)
+    B, shift = 1 << nbits, 32 - nbits
+    pairs = set()
+    for b in range(B):
+        n = cap if b % 4 == 0 else int(rng.integers(0, cap + 1))
+        row = set()
+        while len(row) < n:
+            h = (b << shift) | int(rng.integers(0, 1 << shift))
+            lo = int(rng.integers(0, 1 << 32))
+            if b == 0 and rng.random() < 0.3:
+                lo = 0xFFFFFFFF
+            if b == B - 1 and rng.random() < 0.3:
+                h = 0xFFFFFFFF
+            if (h, lo) != (0xFFFFFFFF, 0xFFFFFFFF):
+                row.add((h, lo))
+        pairs |= row
+    keys = np.array([(h << 32) | lo for h, lo in sorted(pairs)], np.uint64)
+    masks = rng.integers(1, 1 << 32, (len(keys), W), dtype=np.uint64)
+    return keys, masks.astype(np.uint32), cap, stride
+
+
+def _edge_queries(rng, keys, nbits, tile_q):
+    """Every key (hits at every slot, cap - 1 of the full rows among them),
+    as many misses spread over the buckets (on full rows too, which have no
+    empty slot to end the scan), misses with an all-ones hi or lo word and
+    all-ones queries, shuffled and padded to a multiple of tile_q."""
+    hi = (keys >> np.uint64(32)).astype(np.uint32)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    n = len(keys)
+    miss_hi = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    miss_lo = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    ones = np.uint32(0xFFFFFFFF)
+    extra_hi = np.array([ones, ones, 5, ones, ones], np.uint32)
+    extra_lo = np.array([3, 0x12345, ones, ones, ones], np.uint32)
+    qh = np.concatenate([hi, miss_hi, extra_hi])
+    ql = np.concatenate([lo, miss_lo, extra_lo])
+    perm = rng.permutation(len(qh))
+    pad = -len(qh) % tile_q
+    qh = np.concatenate([qh[perm], np.full(pad, ones, np.uint32)])
+    ql = np.concatenate([ql[perm], np.full(pad, ones, np.uint32)])
+    return qh.view(np.int32), ql.view(np.int32)
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 5])
+def test_probe_sorted_kernel_edges(cuda, W):
+    """The probe_sorted kernel against its plain version on a table built
+    to its edges: hits at slot cap - 1 of full rows and misses on them (no
+    empty slot ends the scan), keys whose hi or lo word alone is all ones, all-ones queries
+    against rows with empty slots, the default window and a window of 2
+    rows that leaves queries outside it; then a table view at an odd word
+    (the scalar path) and outputs at an odd word (no vector store).  W=1
+    and W=2 load 64-byte pieces of an aligned row; W=3-5 take the scalar
+    path."""
+    rng = np.random.default_rng(100 + W)
+    nbits, tile_q = 6, 64
+    keys, masks, cap, stride = _edge_dict(rng, W, nbits)
+    table, overflow = BucketedDict._layout(keys, masks, nbits, cap, stride)
+    assert overflow == 0
+    t = torch.from_numpy(table.view(np.int32)).to(cuda)
+    qh, ql = _edge_queries(rng, keys, nbits, tile_q)
+    hi, lo = torch.from_numpy(qh).to(cuda), torch.from_numpy(ql).to(cuda)
+    Q = hi.shape[0]
+    for span in (None, 2):
+        plan = plan_probe(hi, lo, nbits, span, tile_q)
+        args = (plan.qhi, plan.qlo, plan.blo, t, nbits, cap, W, plan.span,
+                tile_q)
+        want = kernels.probe_sorted_plain(*args)
+        assert want.any(dim=1).sum() > len(keys) // 2
+        if span is not None:
+            assert bool(plan.out_span.any())
+        before = kernels.launches["probe_sorted"]
+        assert torch.equal(kernels.probe_sorted(*args), want)
+        assert kernels.launches["probe_sorted"] == before + 1
+
+        flat = torch.empty(t.numel() + 1, dtype=torch.int32, device=cuda)
+        flat[1:] = t.reshape(-1)
+        odd = flat[1:].view(t.shape)
+        assert odd.data_ptr() % 16 == 4
+        assert torch.equal(kernels.probe_sorted(*args[:3], odd, *args[4:]),
+                           want)
+        buf = torch.full((Q * W + 1,), -77, dtype=torch.int32, device=cuda)
+        kernels._probe_sorted_into(*args, buf[1:].view(Q, W))
+        torch.cuda.synchronize()
+        assert int(buf[0]) == -77
+        assert torch.equal(buf[1:].view(Q, W), want)
+
+
 # the shapes at which the two redesigned kernels branch (the CPU tests pin
 # their plain versions against panagram_tpu at the same ones): W with a
 # vector instance (1, 2, 4) and without (3, 5); nbytes that cut nothing,

@@ -216,9 +216,9 @@ def test_fused_popcount_colsums_matches_numpy(P, W, N, ones):
 @pytest.mark.parametrize("name,shape,want", [
     ("pack_mix", dict(L=(1 << 22) + 30, k=31, Ppad=1 << 22),
      1_048_584 + 524_292 + 33_554_432),
-    ("probe_sorted", dict(Q=1 << 22, nwords=1, tile_q=1024, stride=64,
-                          rows_touched=2_500_000),
-     33_554_432 + 16_384 + 16_777_216 + 256 * 2_500_000),
+    ("probe_sorted", dict(Q=1 << 22, nwords=1, tile_q=1024,
+                          table_bytes=117_000_000),
+     33_554_432 + 16_384 + 16_777_216 + 117_000_000),
     ("fused_popcount_colsums", dict(P=1 << 22, W=1, ngenomes=32),
      16_777_216 + 16_777_216 + 128),
     ("masks_to_bytes", dict(P=1 << 22, W=1, nbytes=4), 16_777_216 + 16_777_216),
@@ -231,6 +231,58 @@ def test_bound_bytes_at_the_main_path_shapes(name, shape, want):
     assert kernels.bound_bytes(name, **shape) == want
     with pytest.raises(KeyError):
         kernels.bound_bytes("no_such_kernel", **shape)
+
+
+def _hand_table():
+    """A 4-bucket table, W=1, cap 4 (stride 12): bucket 0 full, bucket 1
+    three keys (one with an all-ones lo word), bucket 2 empty, bucket 3 one
+    key with an all-ones hi word."""
+    t = np.full((4, 12), 0xFFFFFFFF, np.uint32)
+    t[0] = [0x1, 1, 11, 0x2, 2, 12, 0x3, 3, 13, 0x4, 4, 14]
+    t[1, :9] = [0x40000001, 1, 21, 0x40000002, 0xFFFFFFFF, 22,
+                0x40000003, 9, 23]
+    t[3, :3] = [0xFFFFFFFF, 7, 31]
+    return t
+
+
+# sorted on hi, three tiles of 4: hits at slots 0 (twice) and cap - 1 of
+# the full row and a miss there; hits at slots 0 and 1 of bucket 1, none
+# at its last key (slot 2) nor its terminator; bucket 3's key and
+# (0xC0000000, 1), a miss, out of tile 1's window when span = 2; bucket 3's
+# key again, an all-ones query and two all-ones pads
+HAND_QUERIES = [(0x1, 1), (0x1, 1), (0x4, 4), (0x5, 5),
+                (0x40000001, 1), (0x40000002, 0xFFFFFFFF), (0xC0000000, 1),
+                (0xFFFFFFFF, 7),
+                (0xFFFFFFFF, 7)] + [(0xFFFFFFFF, 0xFFFFFFFF)] * 3
+
+
+@pytest.mark.parametrize("span,want_rows,want_bytes", [
+    # rows 0, 1, 3: 4 + 2 + 2 pairs (the miss in row 3 reads its key and
+    # terminator); slots hit: 0/0, 0/3, 1/0, 1/1, 3/0
+    (4, [11, 11, 14, 0, 21, 22, 0, 31, 31, 0, 0, 0], 8 * 8 + 4 * 5),
+    # tile 1 reads rows 1-2: its bucket-3 queries read the empty row 2 and
+    # miss (1 pair); tile 2 reads rows 2-3, its hit in row 3 1 pair
+    (2, [11, 11, 14, 0, 21, 22, 0, 0, 31, 0, 0, 0], 8 * 8 + 4 * 5),
+])
+def test_probe_need_bytes_by_hand(span, want_rows, want_bytes):
+    """probe_need_bytes against a hand count: a row costs the pairs of its
+    longest scan, to a hit at slot s s + 1, to a miss its keys and the
+    terminator (a full row its cap pairs); an all-ones query nothing; each
+    distinct slot hit 4W bytes.  The bound adds the queries, the windows
+    and the output."""
+    t = _i32(_hand_table())
+    qhi = _i32([h for h, _ in HAND_QUERIES])
+    qlo = _i32([lo for _, lo in HAND_QUERIES])
+    blo = kernels.probe_rows(qhi[::4], torch.zeros(3, dtype=torch.int32), 2,
+                             4, 1)
+    blo = torch.clamp(blo, max=4 - span).to(torch.int32)
+    args = (qhi, qlo, blo, t, 2, 4, 1, span, 4)
+    assert kernels.probe_sorted(*args)[:, 0].tolist() == want_rows
+    got = kernels.probe_need_bytes(*args)
+    assert got == want_bytes
+    assert kernels.probe_need_bytes(*args, block=2) == got
+    assert kernels.bound_bytes("probe_sorted", Q=12, nwords=1, tile_q=4,
+                               table_bytes=got) == 8 * 12 + 4 * 3 + 4 * 12 + got
 
 
 def test_probe_rows_are_the_rows_the_plain_probe_gathers():

@@ -262,3 +262,89 @@ def test_layout_bytes_counts_the_port_transients():
     jax_model = fixed + (8 + 4 * W + 12) * D
     assert jax_model < need
     assert route(D, W, "cpu", True, free=jax_model) == "chunked"
+
+
+def _assert_rows_fill_from_slot_zero(table, cap, W, what):
+    """No all-ones pair before a real key in any row of `table` (uint32
+    [B, stride]): probe_sorted's scan ends at a row's first empty slot."""
+    sw = 2 + W
+    s = np.asarray(table, np.uint32)[:, :cap * sw].reshape(-1, cap, sw)
+    empty = (s[:, :, 0] == 0xFFFFFFFF) & (s[:, :, 1] == 0xFFFFFFFF)
+    holes = (np.diff(empty.astype(np.int8), axis=1) < 0).any(axis=1)
+    assert not holes.any(), f"{what}: {int(holes.sum())} rows with a hole"
+    # the check sees keys and empty slots
+    assert (~empty).any() and empty.any(), what
+
+
+def _ones_half_keys(rng, n):
+    """n distinct mixed keys, eight with an all-ones hi word (they share the
+    last bucket) and a tenth with an all-ones lo word: real keys, since only
+    the all-ones pair is empty."""
+    m = rng.integers(0, 1 << 63, n, dtype=np.uint64) * np.uint64(2) + \
+        rng.integers(0, 2, n, dtype=np.uint64)
+    m[:8] |= np.uint64(0xFFFFFFFF00000000)
+    m[8:n // 10] |= np.uint64(0xFFFFFFFF)
+    return np.unique(m[m != SENT])
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+def test_rows_fill_from_slot_zero(rng, W):
+    """Every table the port builds, and panagram_tpu's through
+    from_jax_state, fills each row from slot 0: the host layout, the device
+    routes (sorted and unsorted input, single and chunked), layout_rows
+    with the bucket in the key and apart, and keys whose hi or lo word
+    alone is all ones."""
+    N = {1: 30, 2: 40, 3: 70, 4: 100}[W]
+    keys, masks = _dict(rng, 3000, N)
+    check = _assert_rows_fill_from_slot_zero
+
+    # the check fails on a row with a hole
+    bd = lookup.BucketedDict.build(keys, masks, N, K)
+    holey = bd.table.copy()
+    holey[:, :2 + W] = 0xFFFFFFFF
+    with pytest.raises(AssertionError, match="hole"):
+        check(holey, bd.cap, W, "holey")
+
+    check(bd.table, bd.cap, W, "build")
+    mixed = _ones_half_keys(rng, 3000)
+    mmasks = masks[:len(mixed)]
+    host = lookup.BucketedDict.build(mixed, mmasks, N, K, mixed=True).table
+    last = host[-1, :bd.cap * (2 + W)].reshape(bd.cap, 2 + W)
+    assert ((last[:, 0] == 0xFFFFFFFF) & (last[:, 1] != 0xFFFFFFFF)).sum() == 8
+    check(host, bd.cap, W, "build, mixed")
+    dev = lookup.BucketedDict.build_device(keys, masks, N, K, device="cpu")
+    check(_port_table(dev), dev.cap, W, "build_device, canonical")
+    perm = rng.permutation(len(mixed))
+    dev = lookup.BucketedDict.build_device(mixed[perm], mmasks[perm], N, K,
+                                           mixed=True, device="cpu")
+    check(_port_table(dev), dev.cap, W, "build_device, unsorted mixed")
+    mp, maskp = _mixed_padded(keys, masks)
+    nb, cap, st = lookup.table_geometry(len(keys), W)
+    fixed = (1 << nb) * st * 4 + lookup.ANCHOR_RESERVE_BYTES
+    for free, route in ((None, "single"),
+                        (fixed + lookup.layout_bytes(len(keys), W, "chunked",
+                                                     piece_rows=256),
+                         "chunked")):
+        assert lookup.layout_route(len(keys), W, "cpu", True, free,
+                                   piece_rows=256) == route
+        dev = lookup.BucketedDict.build_device(
+            mp, maskp, N, K, mixed=True, count=len(keys), sorted_input=True,
+            device="cpu", free=free, piece_rows=256)
+        check(_port_table(dev), dev.cap, W, f"build_device, sorted, {route}")
+
+    m, mk = from_u64_np(mp, "cpu"), _i32(maskp)
+    flat, ov = lookup.layout_rows(m, mk, None, 1 << nb, cap, st,
+                                  bucket_in_key=True)
+    assert int(ov) == 0
+    check(flat.view(1 << nb, st).numpy().view(np.uint32), cap, W,
+          "layout_rows, bucket in key")
+    bucket = torch.from_numpy((mp & np.uint64(255)).astype(np.int32))
+    flat, ov = lookup.layout_rows(m, mk, bucket, 256, 7, 64)
+    assert int(ov) > 0          # the rows past cap are dropped, not holes
+    check(flat.view(256, 64).numpy().view(np.uint32), 7, W,
+          "layout_rows, bucket apart")
+
+    jbd = jl.BucketedDict.build_device(keys, masks, N, K)
+    check(_jax_table(jbd), jbd.cap, W, "panagram_tpu build_device")
+    jbd = jl.BucketedDict.build(keys, masks, N, K)
+    check(_jax_table(jbd), jbd.cap, W, "panagram_tpu build")
