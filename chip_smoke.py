@@ -29,6 +29,15 @@
    kernels.
 4. The mosaic probe tool: ``panagram_tpu_torch.tools.mosaic_probe.main()``
    in process must print four True lines and launch its kernel.
+4a. The bench phase: ``bench_torch.main([])`` in process, bench.py's
+   configuration (30 genomes of 2^21 bp, k=21, a 2^25-bp anchor streamed
+   in 2^22-position chunks).  It must have passed its oracle check and its
+   host-anchorer check (it raises otherwise), printed bench.py's dictionary
+   and table (BENCH_KEYS keys x 1 word, a BENCH_TABLE table), launched
+   each anchor kernel BENCH_LAUNCHES times (counts from 0 around it) and
+   no other kernel, and every rate of its line, its best pass's host
+   packing and its copy-back must be above 0.  Prints its line, the best
+   pass's pack / copy split and its wall.
 5. The slice: 30 founder-structured genomes of 5 Mbp (seed 0) are written
    as FASTA and indexed through the CLI entry point,
    ``main(["index", ..., "-k", "31", "--anchor-genomes", "g0", "g1", "g2"])``,
@@ -170,6 +179,7 @@ import io
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -179,6 +189,7 @@ import traceback
 import numpy as np
 import torch
 
+from bench_torch import card_line
 from panagram_tpu_torch.tools.kernel_times import (
     CHUNK,
     K,
@@ -194,6 +205,7 @@ from panagram_tpu_torch.tools.kernel_times import (
     probe_line,
     warm_ms,
 )
+from panagram_tpu_torch.tools.scale_run import founder_genomes, write_fasta
 
 GENOMES, GENOME_BP, ANCHORS = 30, 5_000_000, ("g0", "g1", "g2")
 ORACLE_POSITIONS = 1 << 17
@@ -211,6 +223,10 @@ KERNEL_GENOMES = (30, 40, 70, 100)
 # bytes of device memory per (key, genome) pair the one-device dict stage
 # may peak at: the merge's sort holds about 52 (ops/dictionary._merge_sets)
 DICT_PEAK_PER_PAIR = 64
+# bench phase: bench_torch's dictionary and table at bench.py's full size
+# (bench.py's own output), and each anchor kernel's launches in one run:
+# 8 chunks of warm-up, 1 of the oracle check, 3 x 8 timed, 4 compute-only
+BENCH_KEYS, BENCH_TABLE, BENCH_LAUNCHES = 4_291_328, (1_048_576, 64), 37
 # the repo's 100-genome scale row (tools/scale_run.py, BASELINE.md): W=4
 SCALE_GENOMES, SCALE_BP, SCALE_K, SCALE_ANCHORS = 100, 2_000_000, 21, ("g0", "g1")
 
@@ -227,14 +243,6 @@ KERNELS = [  # (wrapper, CUDA source, TPU kernel it replaces)
      "tools/mosaic_probe.py:50"),
 ]
 ANCHOR_KERNELS = [n for n, _, _ in KERNELS if n != "mosaic_probe"]
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        stdout=subprocess.PIPE, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def max_abs_err(got, want) -> int:
@@ -409,17 +417,60 @@ def mosaic_phase(dev, flush) -> tuple[dict, int]:
     return out, launches
 
 
-def write_fasta(path: str, name: str, codes: np.ndarray, width: int = 80):
-    seq = np.frombuffer(b"ACGT", np.uint8)[codes]
-    full = len(seq) // width * width
-    lines = np.concatenate(
-        [seq[:full].reshape(-1, width),
-         np.full((full // width, 1), ord("\n"), np.uint8)], axis=1)
-    with open(path, "wb") as f:
-        f.write(f">{name}\n".encode())
-        f.write(lines.tobytes())
-        if full < len(seq):
-            f.write(seq[full:].tobytes() + b"\n")
+class _Tee(io.StringIO):
+    """Keeps what is written to it and passes it on to `out`."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, s):
+        self.out.write(s)
+        return super().write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def bench_phase(card: str) -> dict:
+    """bench_torch.main([]) in process, held to bench.py's problem and to
+    BENCH_LAUNCHES launches of each anchor kernel; returns its line."""
+    import bench_torch
+
+    print(f"bench phase [{card}]: bench_torch.main([]), bench.py's "
+          "configuration", flush=True)
+    err, out = _Tee(sys.stderr), io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+        line, counts, wall = _launched(lambda: bench_torch.main([]))
+    text = err.getvalue()
+    print(f"  bench_torch line: {out.getvalue().strip()}", flush=True)
+    m = re.search(r"dict (\d+) keys x (\d+) words", text)
+    if not m or (int(m[1]), int(m[2])) != (BENCH_KEYS, 1):
+        raise AssertionError(f"bench phase: dictionary {m and m[0]}, want "
+                             f"{BENCH_KEYS} keys x 1 words")
+    m = re.search(r"bucketed \((\d+), (\d+)\) stride (\d+)", text)
+    if not m or (int(m[1]), int(m[2]), int(m[3])) != (*BENCH_TABLE,
+                                                      BENCH_TABLE[1]):
+        raise AssertionError(f"bench phase: table {m and m[0]}, want "
+                             f"{BENCH_TABLE}")
+    for want in ("device parity vs oracle OK",
+                 "cpu baseline bytes equal the stream's"):
+        if want not in text:
+            raise AssertionError(f"bench phase: no '{want}' line")
+    want = {n: BENCH_LAUNCHES for n in ANCHOR_KERNELS}
+    if counts != want:
+        raise AssertionError(f"bench phase: launches {counts}, want {want}")
+    m = re.search(r"best rep wall ([0-9.]+) s: pack ([0-9.]+) s, copy "
+                  r"([0-9.]+) s", text)
+    rates = (line["value"], line["vs_baseline"],
+             line["device_compute_kmers_per_s"])
+    if not m or min(rates) <= 0 or float(m[2]) <= 0 or float(m[3]) <= 0:
+        raise AssertionError(f"bench phase: a rate, the packing or the "
+                             f"copy-back at 0: {line}, {m and m[0]}")
+    print(f"  best pass of the stream: wall {m[1]} s, host packing {m[2]} s, "
+          f"copy-back {m[3]} s (card time); launches {counts}; phase wall "
+          f"{wall:.1f} s", flush=True)
+    return line
 
 
 def make_genomes(work: str, ngenomes: int | None = None,
@@ -432,20 +483,10 @@ def make_genomes(work: str, ngenomes: int | None = None,
     ngenomes = GENOMES if ngenomes is None else ngenomes
     bp = GENOME_BP if bp is None else bp
     keep = ANCHORS + ("g3",) if keep is None else keep
-    rng = np.random.default_rng(0)
-    base = rng.integers(0, 4, bp, dtype=np.uint8)
-    founders = []
-    for _ in range(4):
-        mut = base.copy()
-        pos = rng.choice(bp, bp // 100, replace=False)
-        mut[pos] = rng.integers(0, 4, len(pos), dtype=np.uint8)
-        founders.append(mut)
     os.makedirs(os.path.join(work, "fa"))
     seqs = {}
-    for g in range(ngenomes):
-        mut = founders[g % 4].copy()
-        pos = rng.choice(bp, bp // 1000, replace=False)
-        mut[pos] = rng.integers(0, 4, len(pos), dtype=np.uint8)
+    for g, mut in enumerate(founder_genomes(ngenomes, bp,
+                                            np.random.default_rng(0))):
         write_fasta(os.path.join(work, "fa", f"g{g}.fa"), "chr1", mut)
         if f"g{g}" in keep:
             seqs[f"g{g}"] = mut
@@ -2452,6 +2493,8 @@ def main():
               f"{phase}", flush=True)
 
     at("kernel and mosaic phases done")
+    bench_phase(card)
+    at("bench phase done")
     with tempfile.TemporaryDirectory() as work:
         launches, seqs, slice_peak = slice_phase(work, card)
         at("slice phase done")

@@ -486,11 +486,13 @@ def test_read_path_imports_no_jax_pandas(trees, tmp_path):
 
 
 def test_port_imports_no_jax_pandas_yaml(tmp_path):
-    """No module of the port, nor chip_smoke.py, imports jax, panagram_tpu,
-    pandas or yaml, at any depth; matplotlib only inside a function."""
+    """No module of the port, nor chip_smoke.py or bench_torch.py, imports
+    jax, panagram_tpu, pandas or yaml, at any depth; matplotlib only inside
+    a function."""
     import ast
 
-    paths = [os.path.join(REPO, "chip_smoke.py")] + [
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "bench_torch.py")] + [
         os.path.join(root, f)
         for root, _, files in os.walk(os.path.join(REPO, "panagram_tpu_torch"))
         for f in files if f.endswith(".py")]
@@ -498,7 +500,7 @@ def test_port_imports_no_jax_pandas_yaml(tmp_path):
     for new in ("native/anchor_cpu.py", "scripts/query_index.py",
                 "scripts/make_bins_bits.py", "scripts/pairwise_comp.py",
                 "scripts/pairwise_matrix.py", "scripts/write_umaps.py",
-                "scripts/plot_umaps.py"):
+                "scripts/plot_umaps.py", "tools/scale_run.py"):
         assert os.path.join(REPO, "panagram_tpu_torch", new) in paths, new
     for path in paths:
         with open(path) as f:
@@ -517,14 +519,16 @@ def test_port_imports_no_jax_pandas_yaml(tmp_path):
                                     "yaml"), (path, name)
                 if root == "matplotlib":
                     assert id(node) not in top, (path, name)
-    # the scripts and the host anchorer import with those blocked
+    # the scripts, the host anchorer, the benchmark and the scale tool
+    # import with those blocked
     code = ("import sys\n"
             "for m in ('jax', 'pandas', 'yaml', 'panagram_tpu', 'matplotlib'):"
             " sys.modules[m] = None\n"
             "import panagram_tpu_torch, panagram_tpu_torch.native.anchor_cpu\n"
             "from panagram_tpu_torch.scripts import (make_bins_bits, "
             "pairwise_comp, pairwise_matrix, plot_umaps, query_index, "
-            "write_umaps)\n")
+            "write_umaps)\n"
+            "import bench_torch, panagram_tpu_torch.tools.scale_run\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                          env=dict(os.environ, PYTHONPATH=REPO),
                          capture_output=True, text=True, timeout=300)
