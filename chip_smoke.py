@@ -38,6 +38,33 @@
    no other kernel, and every rate of its line, its best pass's host
    packing and its copy-back must be above 0.  Prints its line, the best
    pass's pack / copy split and its wall.
+4b. The bigdict phase, the JAX repo's 1e8-key run (tools/bigdict_run.py)
+   through the port's tool, panagram_tpu_torch/tools/bigdict_run.run, with
+   the tool's own arguments (BIGDICT_RUNS): W=1, 4 random genomes of 26 Mbp
+   (an 8-GiB table), and W=4, 100 of 1.04 Mbp (16 GiB), each through the
+   device dictionary builder, the layout from its arrays and a 32-Mbp
+   anchor (genome 0 tiled) streamed once to warm up and 3 times timed.
+   With the kernel counts from 0 around a run, each anchor kernel must
+   launch once per anchor chunk of the 4 passes (pack_mix also once per
+   builder chunk) and no other kernel; D must equal the host's exact
+   distinct count of the genomes' canonical k-mers (np.sort and a diff);
+   the stream's bytes and popcounts at ORACLE_POSITIONS random positions
+   and at every window across a tile junction, and the bytes, popcounts
+   and column sums of the chunk that holds the first junction, must equal
+   the truth of the genomes' own sorted k-mer sets (ref_impl.truth_rows,
+   which never reads the dictionary); the table must have been laid out
+   on a device route ("single" or "chunked"; the tool raises rather than
+   lay it out on the host); that chunk through anchor_chunk_fast must
+   equal it through the kernels' plain versions (plain_kernels), which
+   must launch no kernel; real_probe reads probe_sorted on it at 2^25 rows,
+   printed beside the kernel phase's reading at a 1.3e7-key table; the
+   builder's peak must stay within what its budget check counts
+   (devdict.merge_bytes) and the layout's transients within
+   lookup.layout_bytes; the best pass's copy-back share must be above 0.
+   Prints D, the count+merge and layout walls, the route, the geometry,
+   the peaks of the builder and the layout, each pass's k-mers/s with its
+   packing and copy-back, and the best pass beside the bench phase's
+   value.
 5. The slice: 30 founder-structured genomes of 5 Mbp (seed 0) are written
    as FASTA and indexed through the CLI entry point,
    ``main(["index", ..., "-k", "31", "--anchor-genomes", "g0", "g1", "g2"])``,
@@ -75,6 +102,15 @@
    the copy-back share must be above 0 on both routes; and the read API
    must return 100 columns equal to the oracle on a window.  Prints the
    stage walls, anchor phases, peaks and launches.
+6b. The w4_steady phase: the JAX repo's tools/w4_steady.py through the
+   port's tool on scale100's default-route index (W=4) with its defaults
+   and --chunk 21 (W4_MBP, W4_REPS, W4_CHUNK): each anchor kernel must
+   launch once per chunk of the reps + 1 sequences (counts from 0 around
+   the run); rep 1 streamed again through the kernels must give the run's
+   k-mers, hits and column sums, and through the kernels' plain versions
+   (no launch) the same bytes, k-mers, hits and column sums.  Prints each rep's wall,
+   rate, packing, copy-back and hit share (the sequences are random, so
+   nearly every query misses), and the best steady rate.
 7. The full-index phase: the same genomes plus a FASTQ read set `reads`
    (150-bp reads at 10x of g3, 0.5% substitutions, seed 0) and GFF3 files
    for g0-g2 (a gene every ~5 kbp with one mRNA and four exons, a
@@ -229,6 +265,16 @@ DICT_PEAK_PER_PAIR = 64
 BENCH_KEYS, BENCH_TABLE, BENCH_LAUNCHES = 4_291_328, (1_048_576, 64), 37
 # the repo's 100-genome scale row (tools/scale_run.py, BASELINE.md): W=4
 SCALE_GENOMES, SCALE_BP, SCALE_K, SCALE_ANCHORS = 100, 2_000_000, 21, ("g0", "g1")
+# tools/bigdict_run.py's two runs (label, --genomes, --mbp), each with its
+# --anchor-mbp 32 and --k 21 and main's floor of 1e8 keys: the defaults
+# (W=1), and 100 genomes of 1.04 Mbp (W=4)
+BIGDICT_RUNS = (("W=1", 4, 26.0), ("W=4", 100, 1.04))
+BIGDICT_ANCHOR_MBP, BIGDICT_K, BIGDICT_MIN_KEYS = 32.0, 21, 100_000_000
+# the W=1 run's distinct keys from the JAX tool's generator (BASELINE.md)
+BIGDICT_W1_KEYS = 103_997_432
+# tools/w4_steady.py's defaults: --mbp 8 --reps 3, and --chunk 21 as the
+# 100-genome row anchors
+W4_MBP, W4_REPS, W4_CHUNK = 8.0, 3, 21
 
 KERNELS = [  # (wrapper, CUDA source, TPU kernel it replaces)
     ("pack_mix", "panagram_tpu_torch/csrc/pack_mix.cu",
@@ -984,6 +1030,271 @@ def scale100_phase(work: str, card: str, dev) -> dict:
     print(f"scale100: Index(prefix).query_bitmap g0 chr1 {s}-{e} returns "
           f"{len(tab.columns)} columns equal to the numpy oracle", flush=True)
     return runs["default"][1]
+
+
+def _junction_windows(glen: int, alen: int, k: int, nk: int) -> np.ndarray:
+    """Start positions of the windows of an anchor of `alen` bases, genome 0
+    of `glen` bases tiled, that cross a tile junction."""
+    starts = [np.arange(j - k + 1, j) for j in range(glen, alen, glen)]
+    out = np.concatenate(starts) if starts else np.zeros(0, np.int64)
+    return out[out < nk]
+
+
+def bigdict_phase(card: str, dev, bench_value: int, measured: dict):
+    """tools/bigdict_run.py's two runs through the port's tool
+    (panagram_tpu_torch/tools/bigdict_run.run, BIGDICT_RUNS): the genomes
+    counted and merged by the device builder, the table laid out from its
+    arrays, a BIGDICT_ANCHOR_MBP anchor streamed.  Each run's launches must
+    be its chunks' (counts from 0 around it), D the host's exact distinct
+    count; the stream's bytes and popcounts at ORACLE_POSITIONS random
+    positions and at every window across a tile junction, and the bytes,
+    popcounts and column sums of the chunk with the first junction, must
+    equal truth_rows of the genomes' own sets; that chunk through the
+    kernels must equal it through their plain versions; the builder's peak
+    must stay within its budget check and the layout's transients within
+    layout_bytes; the copy-back share of the best pass must be above 0.
+    real_probe reads probe_sorted on that chunk."""
+    from panagram_tpu_torch.ops import kernels
+    from panagram_tpu_torch.ops.anchor import anchor_chunk_fast
+    from panagram_tpu_torch.ops.codec import pack_bases_np
+    from panagram_tpu_torch.ops.devdict import DeviceDictBuilder, merge_bytes
+    from panagram_tpu_torch.ops.lookup import layout_bytes
+    from panagram_tpu_torch.ops.ref_impl import (
+        canonical_kmers_np,
+        distinct_count,
+        genome_sets,
+        masks_to_bytes_np,
+        popcount_np,
+        truth_rows,
+    )
+    from panagram_tpu_torch.tools import bigdict_run as B
+
+    k = BIGDICT_K
+    for label, n, mbp in BIGDICT_RUNS:
+        print(f"bigdict {label} [{card}]: bigdict_run.run({n}, {mbp}, "
+              f"{BIGDICT_ANCHOR_MBP}, {k})", flush=True)
+        r, launches, wall = _launched(lambda: B.run(
+            n, mbp, BIGDICT_ANCHOR_MBP, k, device=dev,
+            min_keys=BIGDICT_MIN_KEYS))
+        glen, alen = len(r.genomes[0]), len(r.anchor_codes)
+        nk, W, nbytes = r.nkmers, r.nwords, r.nbytes
+        per_pass = -(-nk // B.CHUNK)
+        want = {name: (1 + B.PASSES) * per_pass for name in ANCHOR_KERNELS}
+        want["pack_mix"] += n * -(-(glen - k + 1) // B.CHUNK)
+        if launches != want:
+            raise AssertionError(f"bigdict {label}: launches {launches}, want "
+                                 f"{want} (the builder's chunks and "
+                                 f"{1 + B.PASSES} passes of {per_pass})")
+
+        t0 = time.perf_counter()
+        sets = genome_sets(r.genomes, k)
+        exact = distinct_count(sets)
+        t_sets = time.perf_counter() - t0
+        print(f"  D = {r.D:,} keys x {W} words; the host's exact distinct "
+              f"count {exact:,} (np.sort and a diff, {t_sets:.1f} s)"
+              + (f"; the JAX tool's generator gave {BIGDICT_W1_KEYS:,}"
+                 if label == "W=1" else ""), flush=True)
+        if r.D != exact:
+            raise AssertionError(f"bigdict {label}: D {r.D} != the exact "
+                                 f"count {exact}")
+
+        # the stream's outputs against the truth of the genomes' own sets
+        t0 = time.perf_counter()
+        canon, valid = canonical_kmers_np(r.anchor_codes, k)
+        junctions = _junction_windows(glen, alen, k, nk)
+        pos = np.union1d(np.random.default_rng(11).choice(
+            nk, ORACLE_POSITIONS, replace=False), junctions)
+        rows = truth_rows(sets, canon[pos], valid[pos])
+        if not np.array_equal(r.bytes[pos], masks_to_bytes_np(rows, nbytes)) \
+                or not np.array_equal(r.popc[pos], popcount_np(rows)):
+            raise AssertionError(f"bigdict {label}: bytes or popcounts differ "
+                                 "from the genomes' truth at the sampled "
+                                 "positions")
+        c = glen // B.CHUNK
+        s, m, cols = r.colsums[c]
+        rows = truth_rows(sets, canon[s:s + m], valid[s:s + m])
+        bits = np.unpackbits(rows.view(np.uint8), axis=1,
+                             bitorder="little")[:, :n]
+        if not np.array_equal(r.bytes[s:s + m],
+                              masks_to_bytes_np(rows, nbytes)) \
+                or not np.array_equal(r.popc[s:s + m], popcount_np(rows)) \
+                or not np.array_equal(cols, bits.sum(axis=0)) \
+                or int(r.popc.sum()) != sum(int(x[2].sum())
+                                            for x in r.colsums):
+            raise AssertionError(f"bigdict {label}: chunk {c} differs from the "
+                                 "genomes' truth, or the column sums from "
+                                 "the popcounts")
+        hit = float(np.count_nonzero(r.popc[pos])) / len(pos)
+        print(f"  the stream equals the genomes' truth at {len(pos)} "
+              f"positions ({ORACLE_POSITIONS} random, {len(junctions)} "
+              f"across {alen // glen} tile junctions; {hit:.4f} of them hit) "
+              f"and over chunk {c} ({m} positions: bytes, popcounts, column "
+              f"sums); the column sums of all {len(r.colsums)} chunks add up "
+              f"to the popcounts ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        del sets, canon, valid, rows, bits
+
+        # that chunk through the kernels and through their plain versions
+        L = B.CHUNK + k - 1
+        buf = np.full(L, 255, np.uint8)
+        buf[:m + k - 1] = r.anchor_codes[s:s + m + k - 1]
+        packed, nmask, _ = pack_bases_np(buf)
+        p = torch.from_numpy(packed).to(dev)
+        nm = torch.from_numpy(nmask).to(dev)
+        bd = r.bd
+
+        def chunk():
+            return anchor_chunk_fast(p, nm, bd.table, L, k, bd.nbits, bd.cap,
+                                     bd.nwords, nbytes)
+
+        got, once, _ = _launched(chunk)
+        with plain_kernels():
+            plain = chunk()
+        torch.cuda.synchronize()
+        after = {n: c for n, c in kernels.launches.items() if c}
+        err = max_abs_err(got, plain)
+        if once != {name: 1 for name in ANCHOR_KERNELS} or after != once \
+                or err != 0 \
+                or not np.array_equal(got[0][:m].cpu().numpy(),
+                                      r.bytes[s:s + m]):
+            raise AssertionError(f"bigdict {label}: chunk {c} through the "
+                                 f"kernels ({once}, then {after} after the "
+                                 f"plain run) differs from their plain "
+                                 f"versions (max |err| {err}) or the stream")
+        del got, plain
+        print(f"  chunk {c} through the four kernels equals their plain "
+              "versions on the card and the stream's", flush=True)
+        probe = real_probe(f"the {label} 1e8-key table, chunk {c}", p, nm, L,
+                           k, B.CHUNK, bd, card)
+        ref = measured[KERNEL_GENOMES[W - 1]]["probe_sorted"]
+        print(f"  probe_sorted at 2^{bd.nbits} rows: cold "
+              f"{probe['cold_ms']:.5f} ms, share of bound "
+              f"{probe['bound_ms'] / probe['cold_ms']:.3f}; the kernel phase's "
+              f"chunk at a 1.3e7-key table (N={KERNEL_GENOMES[W - 1]}): cold "
+              f"{ref['cold_ms']:.5f} ms, share {ref['share']:.3f}", flush=True)
+        del p, nm
+
+        # the walls, the geometry and the peaks
+        base = r.peaks["layout_base"]
+        trans = r.peaks["layout"] - base - r.table_bytes
+        model = layout_bytes(r.D, W, "sorted") - (8 + 4 * W) * r.D
+        cap, buffered = r.capacity, DeviceDictBuilder.FLUSH_CHUNKS * B.CHUNK
+        budget = (8 + 4 * W) * cap + 8 * buffered \
+            + merge_bytes(cap + buffered, W)
+        print(f"  count+merge {r.walls['count_merge']:.3f} s "
+              f"({n * glen / r.walls['count_merge'] / 1e6:.2f} Mbp/s, "
+              f"{r.builder_walls['flushes']} merges); layout "
+              f"{r.walls['layout']:.3f} s, route {r.route}; table 2^{r.nbits} "
+              f"x {r.stride} u32 (cap {r.cap}) = "
+              f"{r.table_bytes / 2**30:.3f} GiB", flush=True)
+        print(f"  peak device memory: builder {r.peaks['builder'] / 2**30:.3f} "
+              f"GiB (its arrays {cap} rows, {cap * (8 + 4 * W) / 2**30:.3f} "
+              f"GiB; its budget check counts {budget / 2**30:.3f} GiB, ratio "
+              f"{r.peaks['builder'] / budget:.3f}), layout "
+              f"{r.peaks['layout'] / 2**30:.3f} GiB; the layout's transients "
+              f"beside its table and inputs {trans / 2**30:.3f} GiB "
+              f"(layout_bytes model {model / 2**30:.3f} GiB, ratio "
+              f"{trans / model:.3f})", flush=True)
+        if r.route not in ("single", "chunked"):
+            raise AssertionError(f"bigdict {label}: the table was laid out on "
+                                 f"route {r.route!r}, not on the device")
+        if r.peaks["builder"] > budget or (r.route == "single"
+                                           and trans > model):
+            raise AssertionError(f"bigdict {label}: the builder's peak over "
+                                 f"its budget check ({r.peaks['builder']} > "
+                                 f"{budget} B) or the layout's transients "
+                                 f"over layout_bytes ({trans} > {model} B)")
+        for i, ps in enumerate(r.passes):
+            print(f"  pass {i}: {ps['kmers_per_s']:.6g} k-mers/s, wall "
+                  f"{ps['wall']:.6f} s, pack {ps['pack']:.6f} s, copy "
+                  f"{ps['copy']:.6f} s (card time)", flush=True)
+        best = r.best_pass
+        share = best["copy"] / best["wall"]
+        print(f"  best pass {r.best:.6g} k-mers/s against bench_torch's value "
+              f"{bench_value:.6g} in this run ({r.best / bench_value:.3f}x); "
+              f"copy-back share of the best pass {share:.6f}; phase wall "
+              f"{wall:.1f} s", flush=True)
+        if not share > 0:
+            raise AssertionError(f"bigdict {label}: the best pass logged no "
+                                 "copy-back time")
+        del r, bd
+        torch.cuda.empty_cache()
+
+
+def w4_steady_phase(work: str, card: str, dev):
+    """tools/w4_steady.py through the port's tool on scale100's
+    default-route index (W=4) with --chunk 21: (reps + 1) sequences of
+    W4_MBP Mbp, each chunk one launch of each anchor kernel (counts from 0
+    around it); rep 1 streamed again through the kernels (one launch of
+    each per chunk) must give the run's k-mers, hits and column sums, and
+    through their plain versions (no launch) the same bytes, k-mers, hits
+    and column sums."""
+    from panagram_tpu_torch.ops import kernels
+    from panagram_tpu_torch.ops.anchor import stream_anchor_chunks
+    from panagram_tpu_torch.tools import w4_steady
+
+    idx = os.path.join(work, "scale100", "idx")
+    print(f"w4_steady [{card}]: w4_steady.run({idx!r}, {W4_MBP}, {W4_REPS}, "
+          f"{W4_CHUNK})", flush=True)
+    r, launches, wall = _launched(lambda: w4_steady.run(
+        idx, W4_MBP, W4_REPS, W4_CHUNK, device=dev))
+    L = int(W4_MBP * 1e6)
+    size = 1 << W4_CHUNK
+    nk = L - r.k + 1
+    want = {name: (W4_REPS + 1) * -(-nk // size) for name in ANCHOR_KERNELS}
+    if r.nwords != 4 or launches != want:
+        raise AssertionError(f"w4_steady: W={r.nwords}, launches {launches}, "
+                             f"want W=4 and {want}")
+    codes = list(w4_steady.sequences(L, W4_REPS))[1]
+    nbytes = (r.ngenomes + 7) // 8
+
+    def rep1():
+        """Rep 1 streamed again: its bytes, k-mers, hits and column sums."""
+        out = np.empty((nk, nbytes), np.uint8)
+        total = hits = 0
+        colsum = np.zeros(r.ngenomes, np.int64)
+        for s0, m, by, popc, cs in stream_anchor_chunks(
+                codes, nk, size, None, r.bd.table, r.bd, nbytes, r.ngenomes,
+                r.k):
+            out[s0:s0 + m] = by
+            total += m
+            hits += int(np.count_nonzero(popc))
+            colsum += cs
+        return out, total, hits, colsum
+
+    (kby, ktot, khits, kcols), once, _ = _launched(rep1)
+    with plain_kernels():
+        pby, ptot, phits, pcols = rep1()
+    after = {n: c for n, c in kernels.launches.items() if c}
+    per_rep = {name: -(-nk // size) for name in ANCHOR_KERNELS}
+    if once != per_rep or after != once:
+        raise AssertionError(f"w4_steady: rep 1 again launched {once}, then "
+                             f"{after} after the plain run; want {per_rep} "
+                             "and no launch from the plain versions")
+    rep = r.reps[1]
+    if (ktot, khits) != (rep["kmers"], rep["hits"]) \
+            or not np.array_equal(kcols, rep["colsums"]):
+        raise AssertionError("w4_steady: rep 1 streamed again differs from "
+                             "the run's rep 1")
+    if not np.array_equal(kby, pby) or (ktot, khits) != (ptot, phits) \
+            or not np.array_equal(kcols, pcols):
+        raise AssertionError("w4_steady: rep 1 through the kernels differs "
+                             "from their plain versions")
+    print(f"  rep 1 through the plain versions: the same {nk} x {nbytes} "
+          f"bytes, {ptot} k-mers, {phits} hits and column sums (total "
+          f"{int(pcols.sum())}) as through the kernels and the run",
+          flush=True)
+    del kby, pby
+    for i, rp in enumerate(r.reps):
+        print(f"  rep {i}: wall {rp['wall']:.6f} s, "
+              f"{rp['kmers'] / rp['wall']:.6g} k-mers/s, pack "
+              f"{rp['pack']:.6f} s, copy {rp['copy']:.6f} s, hit share "
+              f"{rp['hits'] / rp['kmers']:.6f}", flush=True)
+    print(f"  W=4 steady {r.best_mbp_s:.4f} Mbp/s (best of {W4_REPS}); "
+          f"{r.D} keys, table {r.table_shape}, layout {r.layout_s:.3f} s; "
+          f"launches {launches}; phase wall {wall:.1f} s", flush=True)
+    del r
+    torch.cuda.empty_cache()
 
 
 def write_reads(path: str, genome: np.ndarray) -> np.ndarray:
@@ -2493,8 +2804,10 @@ def main():
               f"{phase}", flush=True)
 
     at("kernel and mosaic phases done")
-    bench_phase(card)
+    bench = bench_phase(card)
     at("bench phase done")
+    bigdict_phase(card, dev, bench["value"], measured)
+    at("bigdict phase done")
     with tempfile.TemporaryDirectory() as work:
         launches, seqs, slice_peak = slice_phase(work, card)
         at("slice phase done")
@@ -2502,6 +2815,8 @@ def main():
         at("device-dict phase done")
         scale100_phase(work, card, dev)
         at("scale100 phase done")
+        w4_steady_phase(work, card, dev)
+        at("w4_steady phase done")
         full_index_phase(work, seqs, card, dev)
         at("full-index phase done")
         g0_bits, g0_oracle = read_phase(work, seqs, card)

@@ -38,7 +38,7 @@ from .codec import (
     to_i32,
     u64_np,
 )
-from .lookup import BucketedDict, check_device_budget, layout_bytes, mix64_np
+from .lookup import BucketedDict, check_device_budget, mix64_np
 
 # mix64 of the all-ones key: the pair pack_mix emits for a window with an N
 _SENT_MIX = as_signed64(int(mix64_np(np.array([2**64 - 1], np.uint64))[0]))
@@ -70,6 +70,17 @@ def _union_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Union of two sorted SENTINEL-padded distinct key arrays -> sorted
     distinct [len(a) + len(b)], SENTINEL-padded."""
     return _sort_dedup(torch.cat([a, b]))
+
+
+def merge_bytes(rows: int, nwords: int) -> int:
+    """Device bytes _merge_into holds at its peak, the second sort, for
+    `rows` concatenated rows (live rows plus new keys) of nwords mask
+    words: the concatenated keys, their first order and the merged keys
+    (int64 each), four boolean run flags, the sort of the flipped merged
+    keys (lookup's 48 B per key: input, values, indices, iota and the
+    radix sort's two buffers), and the sorted and the merged mask words
+    (4W B each)."""
+    return (3 * 8 + 4 + 48 + 2 * 4 * nwords) * rows
 
 
 def _merge_into(keys: torch.Tensor, masks: torch.Tensor,
@@ -145,14 +156,18 @@ class DeviceDictBuilder:
 
     def _ensure_capacity(self, needed: int):
         """Grow the arrays to a power of two >= needed (at least 2^10),
-        after the budget check: a merge's transients are ~4 x (8 + 4W)
-        bytes per row of capacity, and no table is laid out beside them."""
+        after the budget check: the arrays, a flush's buffered keys
+        (FLUSH_CHUNKS chunks of int64) and the transients of the largest
+        merge they allow (merge_bytes of capacity plus the buffered rows);
+        no table is laid out beside them."""
         cap = 1 << max(int(np.ceil(np.log2(max(needed, 2)))), 10)
         have = 0 if self.keys is None else self.keys.shape[0]
         if cap <= have:
             return
+        buffered = self.FLUSH_CHUNKS * self.chunk
         check_device_budget(0, self.device, "device dictionary builder",
-                            layout_bytes(cap, self.nwords, "sort"))
+                            (8 + 4 * self.nwords) * cap + 8 * buffered
+                            + merge_bytes(cap + buffered, self.nwords))
         pad = cap - have
         keys = torch.full((pad,), SENTINEL, dtype=torch.int64,
                           device=self.device)
@@ -258,12 +273,14 @@ class DeviceDictBuilder:
                            self.masks[:n].cpu().numpy().view(np.uint32),
                            self.ngenomes, self.k, key_space="mixed")
 
-    def bucketed(self) -> BucketedDict:
+    def bucketed(self, *, host_layout: bool = True) -> BucketedDict:
         """The query table laid out on the device straight from the
         builder's arrays (sorted in mixed space, so the layout skips its
-        grouping sort), with no host copy."""
+        grouping sort), with no host copy where a device route fits;
+        host_layout as in BucketedDict.build_device."""
         n = self.synced_count()
         return BucketedDict.build_device(self.keys, self.masks,
                                          self.ngenomes, self.k, mixed=True,
                                          count=n, sorted_input=True,
-                                         device=self.device)
+                                         device=self.device,
+                                         host_layout=host_layout)

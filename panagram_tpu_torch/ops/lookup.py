@@ -184,15 +184,24 @@ def layout_bytes(D: int, W: int, mode: str,
 
 
 def _free_bytes(device, free):
-    """The free figure to check against: `free` when given, else the free
-    memory of a CUDA `device` (torch.cuda.mem_get_info), else None (a CPU
-    device is not checked)."""
+    """The free figure to check against: `free` when given, else what this
+    process can allocate on a CUDA `device`: the card's free memory
+    (torch.cuda.mem_get_info) and the segments torch's caching allocator
+    holds that no tensor uses (an allocation that finds no room releases
+    them first; after a run of growing merges they can be most of the
+    card).  The free part of a segment that still holds a tensor (an
+    inactive split block) cannot be released, so it is not counted.  A CPU
+    device gives None (not checked)."""
     if free is not None:
         return int(free)
     device = torch.device(device)
     if device.type != "cuda":
         return None
-    return torch.cuda.mem_get_info(device)[0]
+    st = torch.cuda.memory_stats(device)
+    return (torch.cuda.mem_get_info(device)[0]
+            + st.get("reserved_bytes.all.current", 0)
+            - st.get("allocated_bytes.all.current", 0)
+            - st.get("inactive_split_bytes.all.current", 0))
 
 
 def check_device_budget(table_bytes: int, device, what: str = "dictionary",
@@ -200,8 +209,8 @@ def check_device_budget(table_bytes: int, device, what: str = "dictionary",
     """Raise before allocating when a table of table_bytes, `layout` bytes
     of layout transients (layout_bytes) and ANCHOR_RESERVE_BYTES of chunk
     buffers exceed the free memory of `device`: `free` bytes when given,
-    else torch.cuda.mem_get_info of a CUDA device.  A CPU device without a
-    `free` figure is not checked."""
+    else what this process can allocate on a CUDA device (_free_bytes).  A
+    CPU device without a `free` figure is not checked."""
     avail = _free_bytes(device, free)
     need = table_bytes + layout + ANCHOR_RESERVE_BYTES
     if avail is not None and need > avail:
@@ -292,6 +301,9 @@ class BucketedDict:
     ngenomes: int
     k: int
     nwords: int
+    # the route that laid the table out: "single" or "chunked" on the
+    # device (build_device), else "host"
+    route: str = dataclasses.field(default="host", kw_only=True)
 
     MEAN_LOAD = 6
 
@@ -356,7 +368,8 @@ class BucketedDict:
                      mixed: bool = False, count: int | None = None,
                      min_nbits: int = 2, sorted_input: bool = False, *,
                      device="cuda", free: int | None = None,
-                     piece_rows: int = LAYOUT_PIECE_ROWS) -> "BucketedDict":
+                     piece_rows: int = LAYOUT_PIECE_ROWS,
+                     host_layout: bool = True) -> "BucketedDict":
         """Device layout with the result of panagram_tpu's build_device:
         the table is laid out on `device` and stays there.
 
@@ -364,11 +377,16 @@ class BucketedDict:
         with mixed=True, splitmix64-mixed; SENTINEL rows are padding and
         dropped.  masks int32 tensor / numpy uint32 [len(keys), W].
         `count` is the number of real keys (for sizing; default all).
-        The table has at least 2^min_nbits buckets.  sorted_input=True says the keys are sorted in unsigned mixed order
-        (requires mixed=True): the layout skips its grouping sort and may
-        take the chunked route.  `free` and `piece_rows` as in
-        layout_route.  An overflowing bucket retries with one more bucket
-        bit, up to 8 times."""
+        The table has at least 2^min_nbits buckets.  sorted_input=True
+        says the keys are sorted in unsigned mixed order (requires
+        mixed=True), so their padding is the tail: only the first `count`
+        rows are laid out, the layout skips its grouping sort and may take
+        the chunked route.  `free` and `piece_rows` as in
+        layout_route.  Where no device route fits beside the table, the
+        layout runs on the host and is uploaded, or, with
+        host_layout=False, raises naming the budget.  The result's `route`
+        says which route ran.  An overflowing bucket retries with one more
+        bucket bit, up to 8 times."""
         if sorted_input and not mixed:
             raise ValueError("sorted_input requires mixed-space keys")
         device = torch.device(device)
@@ -381,8 +399,24 @@ class BucketedDict:
         W = masks.shape[1] if masks.dim() == 2 else 1
         masks = masks.reshape(keys.shape[0], W).to(device)
         D = max(int(count) if count is not None else keys.shape[0], 1)
+        if sorted_input:
+            # the SENTINEL padding of sorted input is its tail: lay out
+            # the live rows alone, which layout_bytes counts (the device
+            # builder's arrays hold up to 2x count rows)
+            keys, masks = keys[:D], masks[:D]
 
         route = layout_route(D, W, device, sorted_input, free, piece_rows)
+        if route == "host" and not host_layout:
+            nbits, _, stride = table_geometry(D, W)
+            mode = "chunked" if sorted_input else "sort"
+            raise RuntimeError(
+                f"bucketed dict: the device layout of {D:,} keys x {W} "
+                f"words needs ~{((1 << nbits) * stride * 4) / 1e9:.1f} GB "
+                f"(bucket table) + "
+                f"{layout_bytes(D, W, mode, piece_rows) / 1e9:.1f} GB "
+                f"({mode} layout) + {ANCHOR_RESERVE_BYTES / 1e9:.1f} GB (chunk "
+                f"buffers) but {_free_bytes(device, free) / 1e9:.1f} GB are "
+                f"free on {device}, and the host layout was not allowed")
         if route == "host":
             logger.warning("device layout of %s keys does not fit beside "
                            "the table; laying it out on the host", f"{D:,}")
@@ -402,7 +436,7 @@ class BucketedDict:
             if int(overflow) == 0:
                 return cls(table=table.view(1 << nbits, stride), nbits=nbits,
                            cap=cap, stride=stride, ngenomes=ngenomes, k=k,
-                           nwords=W)
+                           nwords=W, route=route)
             del table
             nbits += 1  # halve the mean load and retry
         raise RuntimeError("bucketed dict: bucket overflow persisted after "

@@ -17,6 +17,9 @@ compute (reference panagram/index.py:932-969 and cpp/anchor.cpp:112-195):
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 from ..io.fasta import seq_to_codes
@@ -93,3 +96,58 @@ def popcount_np(masks: np.ndarray) -> np.ndarray:
     return np.unpackbits(
         masks.astype("<u4").view(np.uint8), axis=-1, bitorder="little"
     ).sum(axis=-1).astype(np.int64)
+
+
+# An oracle at 1e8 keys that reads the genomes and never a dictionary:
+# numpy 2's hash-based np.unique is far slower than np.sort and a diff there.
+
+def _threads() -> int:
+    return max(1, min(8, os.cpu_count() or 1))
+
+
+def _sorted_distinct(a: np.ndarray) -> np.ndarray:
+    a = np.sort(a)
+    return a[np.concatenate([[True], a[1:] != a[:-1]])] if len(a) else a
+
+
+def genome_sets(genomes, k: int) -> list[np.ndarray]:
+    """Each genome's sorted distinct canonical k-mers (uint64, one code
+    array per genome), one thread per genome (numpy releases the GIL)."""
+    def one(codes):
+        canon, valid = canonical_kmers_np(codes, k)
+        return _sorted_distinct(canon[valid])
+
+    with ThreadPoolExecutor(_threads()) as ex:
+        return list(ex.map(one, genomes))
+
+
+def distinct_count(sets) -> int:
+    """Distinct keys over the genomes' sets."""
+    if not len(sets):
+        return 0
+    return len(_sorted_distinct(np.concatenate(sets)))
+
+
+def truth_rows(sets, canon: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """Presence rows uint32 [P, W] of the canonical k-mers `canon` (valid
+    bool [P]): bit g set iff genome g's set holds the k-mer (searchsorted
+    into each set, the queries sorted once so that each search walks its
+    set in order), 0 where not valid."""
+    W = (len(sets) + 31) // 32
+    order = np.argsort(canon)
+    q = canon[order]
+
+    def hits(s):
+        if not len(s):
+            return np.zeros(len(q), bool)
+        i = np.minimum(np.searchsorted(s, q), len(s) - 1)
+        return s[i] == q
+
+    out = np.zeros((len(q), W), np.uint32)
+    with ThreadPoolExecutor(_threads()) as ex:
+        for g, h in enumerate(ex.map(hits, sets)):
+            out[:, g // 32] |= h.astype(np.uint32) << np.uint32(g % 32)
+    rows = np.empty_like(out)
+    rows[order] = out
+    rows[~valid] = 0
+    return rows

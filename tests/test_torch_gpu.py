@@ -896,3 +896,59 @@ def test_cpu_anchorer_matches_a_card_build(cuda, tmp_path):
         bits = np.unpackbits(want, axis=1, bitorder="little")
         assert np.array_equal(np.concatenate([g[1] for g in got]),
                               bits.sum(axis=1))
+
+
+@pytest.mark.parametrize("ngenomes,mbp,chunk", [(4, 1.0, 1 << 20),
+                                                (100, 0.02, 1 << 14)])
+def test_bigdict_run_on_card_matches_cpu(cuda, monkeypatch, ngenomes, mbp,
+                                         chunk):
+    """tools/bigdict_run.run at a few Mbp on the card against the same run
+    on the CPU (the kernels' plain versions), same genomes and seed: D, the
+    table and every chunk's bytes, popcounts and column sums equal; the
+    card run measures its peaks and its copy-back."""
+    from panagram_tpu_torch.tools import bigdict_run
+
+    monkeypatch.setattr(bigdict_run, "CHUNK", chunk)
+    args = (ngenomes, mbp, 2.3 * mbp, 21)
+    gpu = bigdict_run.run(*args, device="cuda")
+    cpu = bigdict_run.run(*args, device="cpu")
+    assert gpu.D == cpu.D > 0.99 * ngenomes * mbp * 1e6
+    assert (gpu.nbits, gpu.cap, gpu.stride) == (cpu.nbits, cpu.cap, cpu.stride)
+    assert torch.equal(gpu.bd.table.cpu(), cpu.bd.table)
+    assert np.array_equal(gpu.bytes, cpu.bytes)
+    assert np.array_equal(gpu.popc, cpu.popc)
+    assert len(gpu.colsums) == len(cpu.colsums) == 3
+    for (s, m, a), (t, n, b) in zip(gpu.colsums, cpu.colsums):
+        assert (s, m) == (t, n) and np.array_equal(a, b)
+    assert gpu.peaks["layout"] > gpu.peaks["layout_base"] + gpu.table_bytes
+    assert gpu.peaks["builder"] > gpu.capacity * (8 + 4 * gpu.nwords)
+    assert all(p["copy"] > 0 and p["pack"] > 0 for p in gpu.passes)
+    assert gpu.route == gpu.bd.route == "single"
+
+
+def test_free_bytes_is_what_the_card_can_release(cuda):
+    """lookup._free_bytes counts the caching allocator's unused segments
+    but not the free part of a segment that holds a tensor: with a 2-GiB
+    segment split by a 256-MiB tensor (larger than any free block before,
+    so it is carved from that segment) and an unused 4-GiB segment, it
+    equals the card's free memory after torch.cuda.empty_cache() (within
+    32 MiB), where counting every reserved byte not allocated would be
+    1.75 GiB over."""
+    split = "inactive_split_bytes.all.current"
+    torch.cuda.empty_cache()
+    split0 = torch.cuda.memory_stats(cuda)[split]
+    assert split0 < (256 << 20)
+    big = torch.empty(2 << 30, dtype=torch.uint8, device=cuda)
+    del big
+    small = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)
+    spare = torch.empty(4 << 30, dtype=torch.uint8, device=cuda)
+    del spare
+    st = torch.cuda.memory_stats(cuda)
+    assert st[split] - split0 > (3 << 29)
+    free = lookup._free_bytes(cuda, None)
+    assert free > torch.cuda.mem_get_info(cuda)[0] + (3 << 30)
+    torch.cuda.empty_cache()
+    released = torch.cuda.mem_get_info(cuda)[0]
+    assert abs(released - free) < (1 << 25), (released, free)
+    assert free + st[split] - released > (3 << 29)
+    del small
