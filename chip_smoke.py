@@ -148,6 +148,23 @@
    raise naming the card count.  Prints each build's wall, its dict and
    anchor stage walls, and the rank's peak device memory beside the
    one-device build's.
+9a. The bigdict_mesh phase: the JAX repo's sharded 1e8-key build
+   (tools/bigdict_mesh.py) through the port's tool,
+   ``panagram_tpu_torch.tools.bigdict_mesh.run``, which raises unless the
+   writer's host dictionary equals the host merge oracle (the mixed-sorted
+   distinct union with OR'd presence bits) and the anchored bytes,
+   popcounts and column sums the numpy oracle's.  (a) The JAX tool's full
+   size, 4 random genomes of 26 Mbp (seed 11), k=21, a 2-Mbp anchor of
+   genome 0, on one NCCL rank that holds the whole range-sharded
+   dictionary (2^25 x 64 u32 = 8 GiB): D must be the host's exact count
+   and 103,997,462, the rank must launch each kernel of the range path
+   once per anchor chunk (8 chunks of 2^18) and probe_sorted never, and
+   its peak device memory must stay within what the build's budget checks
+   counted (routing, merge and layout).  (b) The mid-size leg, 4 x 0.26
+   Mbp (~1.04e6 keys) on 8 Gloo ranks on the host's CPU: the same parity,
+   no launch.  (c) More ranks than cards on cuda must raise naming the
+   card count.  Prints each part's walls, the geometry, the peak beside
+   the checks' figure and the phase's wall.
 10. The api phase, on the slice's index: every name the package, ops, io
    and parallel export resolves and ``panagram_tpu_torch.Index(prefix)``
    opens the tree.  ops.anchor_lookup of g0's first 2^22 canonical
@@ -2199,6 +2216,105 @@ def mesh_phase(work: str, card: str, dev, slice_peak: int) -> dict:
     return out
 
 
+# tools/bigdict_mesh.py through the port's tool, run(genomes, mbp, devices,
+# anchor_mbp, k): (a) the JAX tool's full size on one NCCL rank, which holds
+# the whole range-sharded dictionary; (b) the mid-size leg on 8 Gloo ranks
+BIGDICT_MESH_FULL = (4, 26.0, 1, 2.0, 21)
+BIGDICT_MESH_MID = (4, 0.26, 8, 2.0, 21)
+# the union of the JAX tool's genomes (default_rng(11); ROUND5_NOTES.md)
+BIGDICT_MESH_KEYS = 103_997_462
+
+
+def bigdict_mesh_phase(card: str):
+    """tools/bigdict_mesh.py through the port's tool
+    (panagram_tpu_torch/tools/bigdict_mesh.run), which raises unless its
+    host dictionary equals the host merge oracle and its anchored bytes,
+    popcounts and column sums the numpy oracle's.  (a) BIGDICT_MESH_FULL on
+    one NCCL rank: D must be the host's exact count and BIGDICT_MESH_KEYS,
+    the anchored rows agree among themselves, the rank launch each kernel
+    of the range path (MESH_KERNELS) once per anchor chunk and probe_sorted
+    never, and its peak device memory stay within what the build's budget
+    checks counted (the routing, the merge and the layout).
+    (b) BIGDICT_MESH_MID on 8 Gloo ranks: the same parity, no launch.  (c)
+    more ranks than cards on cuda must raise naming the card count before
+    any work.  Prints the walls, the geometry and the peak."""
+    from panagram_tpu_torch.tools import bigdict_mesh as BM
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    for label, args, device in (("(a)", BIGDICT_MESH_FULL, "cuda"),
+                                ("(b)", BIGDICT_MESH_MID, "cpu")):
+        genomes, mbp, devices, anchor_mbp, k = args
+        where = card if device == "cuda" else "Gloo ranks on the host's CPU"
+        print(f"bigdict_mesh {label} [{where}]: bigdict_mesh.run{args} "
+              f"device={device!r}", flush=True)
+        r, parent, wall = _launched(lambda: BM.run(*args, device=device))
+        if parent:
+            raise AssertionError(f"bigdict_mesh {label}: the parent launched "
+                                 f"{parent}; only the ranks may")
+        if r.D != r.host_D or (label == "(a)" and r.D != BIGDICT_MESH_KEYS):
+            raise AssertionError(f"bigdict_mesh {label}: D {r.D}, the host's "
+                                 f"exact count {r.host_D}, the JAX tool's "
+                                 f"{BIGDICT_MESH_KEYS}")
+        bits = np.unpackbits(r.bytes, axis=1, bitorder="little")[:, :genomes]
+        if r.bytes.shape != (r.nk, r.nbytes) or r.nk != min(
+                int(anchor_mbp * 1e6), int(mbp * 1e6) - k + 1) \
+                or not np.array_equal(r.popc, bits.sum(axis=1)) \
+                or not np.array_equal(r.colsums, bits.sum(axis=0)):
+            raise AssertionError(f"bigdict_mesh {label}: the anchored bytes, "
+                                 "popcounts and column sums disagree")
+        chunks = -(-r.nk // (devices * BM.CHUNK_PER_DEV))
+        for rank, launches in enumerate(r.launches):
+            want = {n: chunks if device == "cuda" and n in
+                    MESH_KERNELS["range"] else 0 for n in ANCHOR_KERNELS}
+            got = {n: launches[n] for n in ANCHOR_KERNELS}
+            if got != want:
+                raise AssertionError(f"bigdict_mesh {label}: rank {rank} "
+                                     f"launched {got}, not {want}")
+        print(f"  D = {r.D:,} (the host's exact count" + (
+              f", the JAX tool's {BIGDICT_MESH_KEYS:,}" if label == "(a)"
+              else "") + "); dictionary and "
+              f"anchor equal the oracles; shard [2^{r.nbits} x {r.stride} "
+              f"u32] = {r.shard_bytes / 2**30:.3f} GiB x {r.n_shards}, cap "
+              f"{r.cap}", flush=True)
+        print(f"  walls: sets {r.walls['sets']:.3f} s, build "
+              f"{r.walls['build']:.3f} s, anchor {r.walls['anchor']:.3f} s "
+              f"({r.nk} positions, {chunks} chunk(s)), oracle "
+              f"{r.walls['oracle']:.3f} s, ranks {r.walls['launch']:.3f} s, "
+              f"run {wall:.3f} s; rank 0 launches {r.launches[0]}",
+              flush=True)
+        if device == "cuda":
+            (peak, _), checked = r.peaks[0], r.checked_bytes[0]
+            print(f"  rank 0 peak device memory [{card}]: {peak / 2**30:.3f} "
+                  f"GiB; the build's budget checks counted "
+                  f"{checked / 2**30:.3f} GiB (share {peak / checked:.3f})",
+                  flush=True)
+            if not r.budget_checked or not 0 < peak <= checked:
+                raise AssertionError(f"bigdict_mesh {label}: peak {peak} B "
+                                     f"beyond the checks' {checked} B")
+        else:
+            print("  rank peaks (host peak RSS, GiB): " + ", ".join(
+                "not measured" if b is None else f"{b / 2**30:.3f}"
+                for b, _ in r.peaks), flush=True)
+        del r
+
+    visible = torch.cuda.device_count()
+    over = (BIGDICT_MESH_FULL[0], BIGDICT_MESH_FULL[1], max(8, visible + 1))
+    t0 = time.perf_counter()
+    try:
+        BM.run(*over, device="cuda")
+    except RuntimeError as e:
+        if f"{visible} are visible" not in str(e):
+            raise
+        print(f"bigdict_mesh (c): run{over} on {visible} card(s) raises "
+              f"in {time.perf_counter() - t0:.3f} s: {e}", flush=True)
+    else:
+        raise AssertionError(f"bigdict_mesh: {over[2]} ranks on "
+                             f"{visible} card(s) did not raise")
+    print(f"bigdict_mesh phase wall: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 API_THREADS = 4           # api phase: the host anchorer's first thread count
 
 
@@ -2826,6 +2942,8 @@ def main():
         at("intros phase done")
         mesh_phase(work, card, dev, slice_peak)
         at("mesh phase done")
+        bigdict_mesh_phase(card)
+        at("bigdict_mesh phase done")
         api_phase(work, seqs, card, dev)
         at("api phase done")
     launches["mosaic_probe"] = mosaic_launches

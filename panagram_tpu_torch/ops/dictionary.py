@@ -73,6 +73,16 @@ def _merge_sets(pairs: list, nwords: int):
     return out, masks.view(D, nwords)
 
 
+def merge_sets_bytes(pairs: int, nwords: int) -> int:
+    """Device bytes _merge_sets holds at its peak for `pairs` (key, genome)
+    pairs of nwords mask words: the sort's moment (52 B per pair), or,
+    when the masks are wide, the end, where the keys out (8 B per key,
+    at most one per pair), the segment ids (at most 8: int64 where int32
+    does not hold them), the one-hot words (4) and the masks (4W per key)
+    are alive."""
+    return max(52, 20 + 4 * nwords) * pairs
+
+
 def npz_member(path: str, name: str, mmap: bool = False) -> np.ndarray:
     """Array `name` of the .npz at `path`.  With mmap=True a member stored
     uncompressed (np.savez's) is mapped read-only where it lies in the

@@ -210,7 +210,8 @@ def check_device_budget(table_bytes: int, device, what: str = "dictionary",
     of layout transients (layout_bytes) and ANCHOR_RESERVE_BYTES of chunk
     buffers exceed the free memory of `device`: `free` bytes when given,
     else what this process can allocate on a CUDA device (_free_bytes).  A
-    CPU device without a `free` figure is not checked."""
+    CPU device without a `free` figure is not checked.  Returns the bytes
+    it counted."""
     avail = _free_bytes(device, free)
     need = table_bytes + layout + ANCHOR_RESERVE_BYTES
     if avail is not None and need > avail:
@@ -219,6 +220,7 @@ def check_device_budget(table_bytes: int, device, what: str = "dictionary",
             f"table {table_bytes / 1e9:.1f} GB + layout {layout / 1e9:.1f} "
             f"GB + {ANCHOR_RESERVE_BYTES / 1e9:.1f} GB of chunk buffers) but "
             f"{avail / 1e9:.1f} GB are free on {device}")
+    return need
 
 
 def layout_route(D: int, W: int, device, sorted_input: bool,
@@ -254,8 +256,9 @@ def check_hbm_budget(D: int, W: int, n_shards: int = 1,
     """panagram_tpu's capacity guard: raise before allocating when the
     bucket table of D keys x W mask words, split over n_shards, and its
     layout's transients do not fit one device.  device_layout True is the
-    sorting device layout, "sorted" and "chunked" those routes (layout_bytes
-    counts each), False a host layout (nothing beside the table);
+    sorting device layout, "sorted", "chunked" and "bucket" (a range
+    shard's low-bit buckets) those routes (layout_bytes counts each), False
+    a host layout (nothing beside the table);
     include_table=False checks the transients alone.  The budget is the free
     memory of `device` (check_device_budget) where panagram_tpu takes 80%
     of a TPU chip's memory."""
@@ -264,8 +267,8 @@ def check_hbm_budget(D: int, W: int, n_shards: int = 1,
     per_shard = -(-D // max(n_shards, 1))
     nbits, _, stride = table_geometry(per_shard, W)
     table = (1 << nbits) * stride * 4 if include_table else 0
-    mode = {True: "sort", "sorted": "sorted", "chunked": "chunked"}.get(
-        device_layout)
+    mode = {True: "sort", "sorted": "sorted", "chunked": "chunked",
+            "bucket": "bucket"}.get(device_layout)
     layout = 0 if mode is None else layout_bytes(per_shard, W, mode)
     check_device_budget(table, device, what, layout, free)
 

@@ -128,6 +128,21 @@ def distinct_count(sets) -> int:
     return len(_sorted_distinct(np.concatenate(sets)))
 
 
+def union_dict(sets) -> tuple[np.ndarray, np.ndarray]:
+    """build_dict_np's (keys, masks) of the genomes' sorted distinct sets,
+    with np.sort and a diff in place of np.unique: each genome's bits are
+    set at the searchsorted places of its set (sorted queries, so each
+    search walks the union in order), one thread per genome."""
+    keys = _sorted_distinct(np.concatenate(sets)) if len(sets) \
+        else np.zeros(0, np.uint64)
+    masks = np.zeros((len(keys), (len(sets) + 31) // 32), np.uint32)
+    with ThreadPoolExecutor(_threads()) as ex:
+        for g, idx in enumerate(ex.map(lambda s: np.searchsorted(keys, s),
+                                       sets)):
+            masks[idx, g // 32] |= np.uint32(1 << (g % 32))
+    return keys, masks
+
+
 def truth_rows(sets, canon: np.ndarray, valid: np.ndarray) -> np.ndarray:
     """Presence rows uint32 [P, W] of the canonical k-mers `canon` (valid
     bool [P]): bit g set iff genome g's set holds the k-mer (searchsorted

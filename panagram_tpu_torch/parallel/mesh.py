@@ -255,21 +255,10 @@ def _rank_main(local_rank: int, fn, args, size: int, local_size: int,
         dist.destroy_process_group()
 
 
-def launch(fn, args: tuple, size: int, device_type: str,
-           num_processes: int = 1, process_id: int = 0,
-           coordinator: str | None = None, timeout: float | None = None):
-    """Run fn(mesh, *args) on this process's size / num_processes ranks of
-    a `size`-rank mesh, each a spawned process with its own device, and
-    wait for them.  Returns this process's ranks' RankResults in rank
-    order (this process's kernels.launches counts none of their launches).
-
-    device_type "cuda" gives local rank r the card cuda:r and needs that
-    many visible cards; "cpu" runs every rank on the CPU.  Several
-    processes meet at `coordinator` (host:port, served by process 0);
-    one process picks a free local port.  A failed rank raises here and
-    the others are stopped; so does the `timeout` (seconds) running out."""
-    import torch.multiprocessing as mp
-
+def check_ranks(size: int, device_type: str, num_processes: int = 1) -> int:
+    """The ranks of this process in a `size`-rank mesh over num_processes
+    processes on `device_type`; raises when they do not divide or, on
+    cuda, when this process sees fewer cards than it runs ranks."""
     if size < 1 or num_processes < 1 or size % num_processes:
         raise ValueError(f"--mesh {size} is not a multiple of "
                          f"--num-processes {num_processes}")
@@ -286,6 +275,25 @@ def launch(fn, args: tuple, size: int, device_type: str,
                 "rank per card: NCCL does not run two ranks on one card)")
     elif device_type != "cpu":
         raise ValueError(f"--mesh runs on cuda or cpu, not {device_type!r}")
+    return local_size
+
+
+def launch(fn, args: tuple, size: int, device_type: str,
+           num_processes: int = 1, process_id: int = 0,
+           coordinator: str | None = None, timeout: float | None = None):
+    """Run fn(mesh, *args) on this process's size / num_processes ranks of
+    a `size`-rank mesh, each a spawned process with its own device, and
+    wait for them.  Returns this process's ranks' RankResults in rank
+    order (this process's kernels.launches counts none of their launches).
+
+    device_type "cuda" gives local rank r the card cuda:r and needs that
+    many visible cards; "cpu" runs every rank on the CPU.  Several
+    processes meet at `coordinator` (host:port, served by process 0);
+    one process picks a free local port.  A failed rank raises here and
+    the others are stopped; so does the `timeout` (seconds) running out."""
+    import torch.multiprocessing as mp
+
+    local_size = check_ranks(size, device_type, num_processes)
     if num_processes > 1 and not coordinator:
         raise ValueError("a mesh over several processes needs a coordinator "
                          "(host:port)")

@@ -46,7 +46,7 @@ from ..ops.codec import (
     u32,
     u64_np,
 )
-from ..ops.dictionary import PanKmerDict, _merge_sets
+from ..ops.dictionary import PanKmerDict, _merge_sets, merge_sets_bytes
 from ..ops.lookup import (
     TILE_Q,
     bucket_query_sorted_pre,
@@ -81,6 +81,10 @@ class ShardedBucketedDict:
     k: int
     nwords: int
     n_shards: int
+    # the most device memory any budget check of the build counted (the
+    # table, transients and lookup.ANCHOR_RESERVE_BYTES); counted on every
+    # device, checked on CUDA devices only
+    checked_bytes: int = 0
 
     @property
     def nbytes_row(self) -> int:
@@ -138,35 +142,44 @@ def _local_probe(m: torch.Tensor, table: torch.Tensor, nbits: int, cap: int,
 
 # ---------------------------------------------------------------- build --
 
+# device bytes per (key, genome) pair that a rank holds while it groups its
+# slice by owner: the keys and genome ids (12) beside the stable sort of the
+# owners (lookup's 48 B per key).  The exchange that follows holds 28 B per
+# pair sent and 8-12 per pair received, less while a rank receives at most
+# 3.6x its slice (mixed keys spread evenly over the ranks).
+_ROUTE_BYTES_PER_PAIR = 60
+
 
 def _layout_params(total_keys: int, n_shards: int, nwords: int, extra: int,
                    device, mode: str):
     """Per-shard table geometry for total_keys keys over n_shards, with
-    `extra` bucket bits; raises (check_device_budget) when a shard's table
-    and its layout of `mode` (ops/lookup.layout_bytes) do not fit."""
+    `extra` bucket bits, and the bytes its budget check counted; raises
+    (check_device_budget) when a shard's table and its layout of `mode`
+    (ops/lookup.layout_bytes) do not fit."""
     per_shard = max(-(-total_keys // max(n_shards, 1)), 1)
     nbits, cap, stride = table_geometry(per_shard, nwords)
     nbits += extra
-    check_device_budget((1 << nbits) * stride * 4, device,
-                        what=f"sharded dict ({n_shards} shards)",
-                        layout=layout_bytes(per_shard, nwords, mode,
-                                            n_buckets=1 << nbits))
-    return nbits, cap, stride
+    need = check_device_budget((1 << nbits) * stride * 4, device,
+                               what=f"sharded dict ({n_shards} shards)",
+                               layout=layout_bytes(per_shard, nwords, mode,
+                                                   n_buckets=1 << nbits))
+    return nbits, cap, stride, need
 
 
 def _shard_layout(mesh: Mesh, out_keys: torch.Tensor, out_masks: torch.Tensor,
                   total: int, nwords: int, what: str):
     """Lay out this rank's keys (low-bit buckets) with the geometry of
     total keys over the mesh, one more bucket bit while any rank's bucket
-    overflows (decided from the summed overflow, so in lockstep)."""
+    overflows (decided from the summed overflow, so in lockstep).  Returns
+    the table, its geometry and the bytes its budget check counted."""
     for extra in range(6):
-        nbits, cap, stride = _layout_params(total, mesh.size, nwords, extra,
-                                            mesh.device, "bucket")
+        nbits, cap, stride, need = _layout_params(
+            total, mesh.size, nwords, extra, mesh.device, "bucket")
         bucket = out_keys & ((1 << nbits) - 1)
         table, overflow = layout_rows(out_keys, out_masks, bucket, 1 << nbits,
                                       cap, stride)
         if int(all_sum(mesh, overflow.reshape(1).to(torch.int64))) == 0:
-            return table.view(1 << nbits, stride), nbits, cap, stride
+            return table.view(1 << nbits, stride), nbits, cap, stride, need
         del table
     raise RuntimeError(f"{what}: bucket overflow persisted")
 
@@ -183,12 +196,23 @@ def sharded_build_dictionary(genome_sets, mesh: Mesh, ngenomes: int, k: int,
     mixed key space on writer ranks, None on the others.  Each shard's
     keys and masks then go to the host and from there to the writers only
     (gather_rows_to_writers), so no device holds more than its own shard;
-    their rank-order concatenation is sorted in unsigned order."""
+    their rank-order concatenation is sorted in unsigned order.
+
+    Before each step that needs it, the rank checks its device's budget
+    (check_device_budget): the routing of its slice
+    (_ROUTE_BYTES_PER_PAIR), the merge of the pairs it received
+    (merge_sets_bytes) and the layout (_layout_params); the most any of
+    them counted is the shard's checked_bytes."""
     S, dev = mesh.size, mesh.device
     W = (ngenomes + 31) // 32
     total = int(sum(len(s) for s in genome_sets))
     per = -(-max(total, 1) // S)
     lo, hi = mesh.rank * per, (mesh.rank + 1) * per
+    what = f"sharded build ({S} shards)"
+    n_local = max(0, min(hi, total) - lo)
+    route_need = check_device_budget(
+        0, dev, f"{what}: routing {n_local} pairs",
+        layout=_ROUTE_BYTES_PER_PAIR * n_local)
     keys, gids, off = [], [], 0
     for g, s in enumerate(genome_sets):
         a, b = max(lo, off), min(hi, off + len(s))
@@ -206,10 +230,14 @@ def sharded_build_dictionary(genome_sets, mesh: Mesh, ngenomes: int, k: int,
     del m
     pairs.append(all_to_all(mesh, gids[order], counts)[0])
     del gids, order
+    T = pairs[0].shape[0]
+    merge_need = check_device_budget(0, dev, f"{what}: merging {T} pairs",
+                                     layout=merge_sets_bytes(T, W))
     out_keys, out_masks = _merge_sets(pairs, W)
-    table, nbits, cap, stride = _shard_layout(mesh, out_keys, out_masks, total,
-                                              W, "sharded build")
-    sbd = ShardedBucketedDict(table, nbits, cap, stride, ngenomes, k, W, S)
+    table, nbits, cap, stride, need = _shard_layout(
+        mesh, out_keys, out_masks, total, W, "sharded build")
+    sbd = ShardedBucketedDict(table, nbits, cap, stride, ngenomes, k, W, S,
+                              max(route_need, merge_need, need))
     if not return_host_dict:
         return sbd
     out_keys, out_masks = out_keys.cpu(), out_masks.cpu()
@@ -262,10 +290,10 @@ def shard_dictionary(pan_dict: PanKmerDict, mesh: Mesh) -> ShardedBucketedDict:
     out_keys = flip64(srt)
     out_masks = recv[idx, 1:].to(torch.int32)
     del recv, srt, idx
-    table, nbits, cap, stride = _shard_layout(mesh, out_keys, out_masks, D, W,
-                                              "shard_dictionary")
+    table, nbits, cap, stride, need = _shard_layout(
+        mesh, out_keys, out_masks, D, W, "shard_dictionary")
     return ShardedBucketedDict(table, nbits, cap, stride, pan_dict.ngenomes,
-                               pan_dict.k, W, S)
+                               pan_dict.k, W, S, need)
 
 
 # --------------------------------------------------------------- anchor --
@@ -353,7 +381,7 @@ def shard_dictionary_genomes(pan_dict: PanKmerDict,
     ml = torch.from_numpy(masks.view(np.int32)).to(dev)
     mode = "sorted" if mixed else "sort"
     for extra in range(8):
-        nbits, cap, stride = _layout_params(D, 1, Wl, extra, dev, mode)
+        nbits, cap, stride, _ = _layout_params(D, 1, Wl, extra, dev, mode)
         table, overflow = layout_rows(m, ml, None, 1 << nbits, cap, stride,
                                       bucket_in_key=True, pre_sorted=mixed)
         if int(all_sum(mesh, overflow.reshape(1).to(torch.int64))) == 0:
