@@ -17,21 +17,22 @@ copies the dense bytes back.
 host packing into a pinned staging buffer, the chunk's work on a side
 CUDA stream, and a ring of PIPELINE_DEPTH chunks in flight, so the host
 consumes one chunk (BGZF writes, histograms) while the card computes the
-next.  It reports the host's packing time and the copy-back's time (CUDA
-events around the three copies on the chunk's stream: the card's time,
-read once the chunk's results are waited for anyway).
+next.  Its steps are spans of ``panagram_tpu_torch.spans``; the packing's
+and the copy-back's (the card's time between events around the three
+copies, read once the chunk's results are waited for anyway) also go to
+the caller's ``phase``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import sys
-import time
 from collections import deque
 
 import numpy as np
 import torch
 
+from .. import spans
 from . import kernels
 from .codec import SENTINEL, flip64, pack_bases_np, pack_kmers
 from .kernels import masks_to_bytes  # noqa: F401  (panagram_tpu's ops.anchor name)
@@ -164,10 +165,8 @@ class _Slot:
         self.by = buf(Ppad, nbytes, dtype=torch.uint8)
         self.popc = buf(Ppad, dtype=torch.int32)
         self.colsums = buf(ncols, dtype=torch.int32)
-        # the copy-back's bounds on the chunk's stream; `ready` marks the
-        # results complete
-        self.copying = torch.cuda.Event(enable_timing=True) if cuda else None
-        self.ready = torch.cuda.Event(enable_timing=True) if cuda else None
+        # marks the results complete
+        self.ready = torch.cuda.Event() if cuda else None
 
 
 def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int,
@@ -186,30 +185,38 @@ def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int,
     `state` and `capacity` size panagram_tpu's run-length transfers (its
     hints across chromosomes, the run capacity); this engine copies the
     dense bytes back, so they change nothing here.  trace=True prints each
-    chunk's wait for its results to stderr.  `phase`, when given, gains
-    seconds under "pack" (the host packing the chunks into their staging
-    buffers) and "copy" (the copy-back of the results: on a CUDA device the
+    chunk's wait for its results (its anchor.drain span) to stderr.
+    `phase`, when given, gains seconds under "pack" (the host packing the
+    chunks into their staging buffers: the anchor.pack spans) and "copy"
+    (the copy-back of the results, anchor.copyback: on a CUDA device the
     card's time between events on the chunk's stream, on the CPU the
-    host's)."""
+    host's).
+
+    Spans: anchor.alloc (once a call), anchor.pack, anchor.dispatch (the
+    host enqueueing the chunk's upload, kernels and copies), anchor.copyback
+    and anchor.drain (the host waiting for the chunk's results).  Counters:
+    anchor.positions_yielded and anchor.positions_computed (the padded
+    positions the kernels ran)."""
     phase = {} if phase is None else phase
     phase.setdefault("pack", 0.0)
     phase.setdefault("copy", 0.0)
-    if table is None:
-        table = bd.table
-    table = plain_table(table, bd.nbits, getattr(table, "device", "cpu"))
-    device = table.device
-    cuda = device.type == "cuda"
-    L = chunk + k - 1
-    n4 = (L + 3) // 4
-    Ppad = -(-chunk // TILE_Q) * TILE_Q
-    slots = [_Slot(n4 + (L + 7) // 8, Ppad, nbytes, 32 * bd.nwords, cuda)
-             for _ in range(PIPELINE_DEPTH)]
-    stream = torch.cuda.Stream(device) if cuda else None
-    if cuda:
-        stream.wait_stream(torch.cuda.current_stream(device))
-    if buf is None or len(buf) < L:
-        buf = np.empty(L, np.uint8)
-    buf = buf[:L]
+    with spans.span("anchor.alloc"):
+        if table is None:
+            table = bd.table
+        table = plain_table(table, bd.nbits, getattr(table, "device", "cpu"))
+        device = table.device
+        cuda = device.type == "cuda"
+        L = chunk + k - 1
+        n4 = (L + 3) // 4
+        Ppad = -(-chunk // TILE_Q) * TILE_Q
+        slots = [_Slot(n4 + (L + 7) // 8, Ppad, nbytes, 32 * bd.nwords, cuda)
+                 for _ in range(PIPELINE_DEPTH)]
+        stream = torch.cuda.Stream(device) if cuda else None
+        if cuda:
+            stream.wait_stream(torch.cuda.current_stream(device))
+        if buf is None or len(buf) < L:
+            buf = np.empty(L, np.uint8)
+        buf = buf[:L]
     pending: deque = deque()
 
     def launch(slot: _Slot):
@@ -217,46 +224,46 @@ def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int,
         by, popc, colsums = _anchor_chunk_padded(ib[:n4], ib[n4:], L, k,
                                                  table, bd.nbits, bd.cap,
                                                  bd.nwords, nbytes)
-        if cuda:
-            slot.copying.record(stream)
-        t0 = time.perf_counter()
-        slot.by.copy_(by, non_blocking=True)
-        slot.popc.copy_(popc, non_blocking=True)
-        slot.colsums.copy_(colsums, non_blocking=True)
+        with spans.span("anchor.copyback", device=cuda, phase=phase,
+                        key="copy"):
+            slot.by.copy_(by, non_blocking=True)
+            slot.popc.copy_(popc, non_blocking=True)
+            slot.colsums.copy_(colsums, non_blocking=True)
         if cuda:
             slot.ready.record(stream)
-        else:
-            phase["copy"] += time.perf_counter() - t0
 
     def finish(start: int, m: int, slot: _Slot):
-        t0 = time.perf_counter()
-        if cuda:
-            slot.ready.synchronize()
-            phase["copy"] += slot.copying.elapsed_time(slot.ready) / 1e3
+        wait = {"s": 0.0} if trace else None
+        with spans.span("anchor.drain", phase=wait, key="s"):
+            if cuda:
+                slot.ready.synchronize()
+                spans.settle()
         if trace:
             print(f"  drain: start={start} m={m} "
-                  f"wait={1e3 * (time.perf_counter() - t0):.0f}ms",
+                  f"wait={1e3 * wait['s']:.0f}ms",
                   file=sys.stderr, flush=True)
+        spans.count("anchor.positions_yielded", m)
         return (start, m, slot.by.numpy()[:m], slot.popc.numpy()[:m],
                 slot.colsums.numpy()[:ngenomes].astype(np.int64))
 
     try:
         for i, start in enumerate(range(0, nkmers, chunk)):
             m = min(chunk, nkmers - start)
-            t0 = time.perf_counter()
-            buf[:] = 255   # invalid bases: positions past m never hit
-            buf[:m + k - 1] = codes[start:start + m + k - 1]
-            packed, nmask, _ = pack_bases_np(buf)
-            # slot i % DEPTH last held chunk i - DEPTH, which was yielded
-            # and consumed before this request
-            slot = slots[i % PIPELINE_DEPTH]
-            inb = slot.inbuf.numpy()
-            inb[:n4] = packed
-            inb[n4:] = nmask
-            phase["pack"] += time.perf_counter() - t0
-            ctx = torch.cuda.stream(stream) if cuda else contextlib.nullcontext()
-            with ctx:
-                launch(slot)
+            with spans.span("anchor.pack", phase=phase, key="pack"):
+                buf[:] = 255   # invalid bases: positions past m never hit
+                buf[:m + k - 1] = codes[start:start + m + k - 1]
+                packed, nmask, _ = pack_bases_np(buf)
+                # slot i % DEPTH last held chunk i - DEPTH, which was
+                # yielded and consumed before this request
+                slot = slots[i % PIPELINE_DEPTH]
+                inb = slot.inbuf.numpy()
+                inb[:n4] = packed
+                inb[n4:] = nmask
+            with spans.span("anchor.dispatch"):
+                with torch.cuda.stream(stream) if cuda else \
+                        contextlib.nullcontext():
+                    launch(slot)
+            spans.count("anchor.positions_computed", Ppad)
             pending.append((start, m, slot))
             if len(pending) >= PIPELINE_DEPTH:
                 yield finish(*pending.popleft())
@@ -265,3 +272,4 @@ def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int,
     finally:
         if cuda:
             stream.synchronize()
+            spans.settle()

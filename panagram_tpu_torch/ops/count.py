@@ -11,6 +11,10 @@ Device memory stays bounded by the chunk size, not the genome's: every
 SPILL_CHUNKS chunk sets are merged on the device by one more unique and
 the result moves to the host, where the spilled groups are merged as
 panagram_tpu.ops.count merges its chunk sets.
+
+Spans (panagram_tpu_torch.spans), timed on the card: count.upload,
+count.unique (packing and unique) and count.readback (a spill's copy to
+the host).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import spans
 from .codec import check_k, pack_kmers, u64_np
 
 DEFAULT_CHUNK = 1 << 22  # positions per device chunk
@@ -31,23 +36,29 @@ def distinct_kmers_chunked(code_arrays, k: int, chunk: int = DEFAULT_CHUNK,
     Each sequence is cut into (k-1)-overlapping windows of `chunk`
     positions, each uploaded on its own."""
     check_k(k)
+    cuda = torch.device(device).type == "cuda"
     group: list[torch.Tensor] = []
     spilled: list[np.ndarray] = []
 
     def spill():
-        merged = group[0] if len(group) == 1 else torch.unique(
-            torch.cat(group), sorted=True)
+        with spans.span("count.unique", device=cuda):
+            merged = group[0] if len(group) == 1 else torch.unique(
+                torch.cat(group), sorted=True)
         group.clear()
-        spilled.append(u64_np(merged))
+        with spans.span("count.readback", device=cuda):
+            spilled.append(u64_np(merged))
 
     for codes in code_arrays:
         codes = np.asarray(codes, np.uint8)
         n = len(codes) - k + 1
         for start in range(0, max(n, 0), chunk):
             m = min(chunk, n - start)
-            window = torch.from_numpy(codes[start:start + m + k - 1]).to(device)
-            canon, valid = pack_kmers(window, k)
-            group.append(torch.unique(canon[valid], sorted=True))
+            with spans.span("count.upload", device=cuda):
+                window = torch.from_numpy(
+                    codes[start:start + m + k - 1]).to(device)
+            with spans.span("count.unique", device=cuda):
+                canon, valid = pack_kmers(window, k)
+                group.append(torch.unique(canon[valid], sorted=True))
             if len(group) == SPILL_CHUNKS:
                 spill()
     if group:
@@ -106,6 +117,7 @@ def counted_kmers_chunked(code_arrays, k: int, min_count: int = 2,
     where the spilled groups are merged every SPILL_CHUNKS groups.  The
     threshold applies to the global count across all chunks."""
     check_k(k)
+    cuda = torch.device(device).type == "cuda"
     cap = chunk + k - 1
     buf = np.full(cap, 255, np.uint8)
     pos = 0
@@ -113,10 +125,13 @@ def counted_kmers_chunked(code_arrays, k: int, min_count: int = 2,
     spilled: list[tuple[np.ndarray, np.ndarray]] = []
 
     def spill():
-        ks, cs = group[0] if len(group) == 1 else _counted_unique(
-            torch.cat([g[0] for g in group]), torch.cat([g[1] for g in group]))
+        with spans.span("count.unique", device=cuda):
+            ks, cs = group[0] if len(group) == 1 else _counted_unique(
+                torch.cat([g[0] for g in group]),
+                torch.cat([g[1] for g in group]))
         group.clear()
-        spilled.append((u64_np(ks), cs.cpu().numpy()))
+        with spans.span("count.readback", device=cuda):
+            spilled.append((u64_np(ks), cs.cpu().numpy()))
         if len(spilled) > SPILL_CHUNKS:
             spilled[:] = [_merge_counted(spilled)]
 
@@ -126,11 +141,13 @@ def counted_kmers_chunked(code_arrays, k: int, min_count: int = 2,
             return
         # the buffer's tail past pos holds only invalid windows: upload the
         # filled prefix alone
-        window = torch.from_numpy(buf[:min(pos, cap)]).to(device)
+        with spans.span("count.upload", device=cuda):
+            window = torch.from_numpy(buf[:min(pos, cap)]).to(device)
         pos = 0
-        canon, valid = pack_kmers(window, k)
-        keys, counts = torch.unique(canon[valid], sorted=True,
-                                    return_counts=True)
+        with spans.span("count.unique", device=cuda):
+            canon, valid = pack_kmers(window, k)
+            keys, counts = torch.unique(canon[valid], sorted=True,
+                                        return_counts=True)
         group.append((keys, counts))
         if len(group) == SPILL_CHUNKS:
             spill()

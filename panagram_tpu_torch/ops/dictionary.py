@@ -21,6 +21,7 @@ import zipfile
 import numpy as np
 import torch
 
+from .. import spans
 from .codec import SIGN64, from_u64_np, u64_np
 
 # rows per pairwise block: entries of one block's product are <= 2^20 < 2^24,
@@ -177,24 +178,30 @@ def build_dictionary(genome_sets: list[np.ndarray], k: int,
                      ngenomes: int | None = None, *,
                      device="cuda") -> PanKmerDict:
     """Merge per-genome sorted distinct key sets (numpy uint64; list order
-    = genome id) into a PanKmerDict, on `device`."""
+    = genome id) into a PanKmerDict, on `device`.  Spans
+    (panagram_tpu_torch.spans), timed on the card: dict.upload (the sets),
+    dict.merge, dict.readback (keys and masks)."""
     N = ngenomes if ngenomes is not None else len(genome_sets)
     W = (N + 31) // 32
     total = int(sum(len(s) for s in genome_sets))
     if total == 0:
         return PanKmerDict(np.zeros(0, np.uint64), np.zeros((0, W), np.uint32),
                            N, k)
+    cuda = torch.device(device).type == "cuda"
     # one buffer filled set by set: a concatenation would hold every set
     # twice
-    keys = torch.empty(total, dtype=torch.int64, device=device)
-    gids = torch.empty(total, dtype=torch.int32, device=device)
-    off = 0
-    for g, s in enumerate(genome_sets):
-        keys[off:off + len(s)] = from_u64_np(s, device)
-        gids[off:off + len(s)] = g
-        off += len(s)
+    with spans.span("dict.upload", device=cuda):
+        keys = torch.empty(total, dtype=torch.int64, device=device)
+        gids = torch.empty(total, dtype=torch.int32, device=device)
+        off = 0
+        for g, s in enumerate(genome_sets):
+            keys[off:off + len(s)] = from_u64_np(s, device)
+            gids[off:off + len(s)] = g
+            off += len(s)
     pairs = [keys, gids]
     del keys, gids
-    out_keys, masks = _merge_sets(pairs, W)
-    return PanKmerDict(u64_np(out_keys),
-                       masks.cpu().numpy().view(np.uint32), N, k)
+    with spans.span("dict.merge", device=cuda):
+        out_keys, masks = _merge_sets(pairs, W)
+    with spans.span("dict.readback", device=cuda):
+        return PanKmerDict(u64_np(out_keys),
+                           masks.cpu().numpy().view(np.uint32), N, k)

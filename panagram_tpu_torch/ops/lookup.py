@@ -45,6 +45,7 @@ import logging
 import numpy as np
 import torch
 
+from .. import spans
 from . import kernels
 from .codec import (  # noqa: F401  (mix64 re-exported)
     MIX_M1,
@@ -393,14 +394,15 @@ class BucketedDict:
         if sorted_input and not mixed:
             raise ValueError("sorted_input requires mixed-space keys")
         device = torch.device(device)
-        if isinstance(keys, np.ndarray):
-            keys = from_u64_np(keys, device)
-        if isinstance(masks, np.ndarray):
-            masks = torch.from_numpy(
-                np.ascontiguousarray(masks, np.uint32).view(np.int32))
-        keys = keys.to(device)
-        W = masks.shape[1] if masks.dim() == 2 else 1
-        masks = masks.reshape(keys.shape[0], W).to(device)
+        with spans.span("layout.upload", device=device.type == "cuda"):
+            if isinstance(keys, np.ndarray):
+                keys = from_u64_np(keys, device)
+            if isinstance(masks, np.ndarray):
+                masks = torch.from_numpy(
+                    np.ascontiguousarray(masks, np.uint32).view(np.int32))
+            keys = keys.to(device)
+            W = masks.shape[1] if masks.dim() == 2 else 1
+            masks = masks.reshape(keys.shape[0], W).to(device)
         D = max(int(count) if count is not None else keys.shape[0], 1)
         if sorted_input:
             # the SENTINEL padding of sorted input is its tail: lay out
