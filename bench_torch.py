@@ -12,8 +12,9 @@ pan-genome dictionary laid out as the bucket table on the device, and a
 PANAGRAM_TPU_BENCH_CHUNK_LOG2 sets the chunk).  The set-up is untimed.
 
 Timed, as bench.py times them:
-- the streamed chunk loop, ops.anchor.stream_anchor_chunks: host packing
-  into pinned buffers, the four anchor kernels per chunk, the dense
+- the streamed chunk loop, ops.anchor.stream_anchor_chunks: the host's
+  copy of each chunk's codes into a pinned buffer, its upload, the
+  pack_bases kernel and the four anchor kernels per chunk, the dense
   copy-back of bytes, popcounts and column sums.  One warm-up pass, then
   the best of 3 passes (1 with --quick), each over the whole anchor.  The
   first 2^17 streamed positions must equal the numpy oracle before any

@@ -278,8 +278,10 @@ KERNEL_GENOMES = (30, 40, 70, 100)
 DICT_PEAK_PER_PAIR = 64
 # bench phase: bench_torch's dictionary and table at bench.py's full size
 # (bench.py's own output), and each anchor kernel's launches in one run:
-# 8 chunks of warm-up, 1 of the oracle check, 3 x 8 timed, 4 compute-only
+# 8 chunks of warm-up, 1 of the oracle check, 3 x 8 timed, 4 compute-only;
+# pack_bases runs in the 33 streamed chunks only
 BENCH_KEYS, BENCH_TABLE, BENCH_LAUNCHES = 4_291_328, (1_048_576, 64), 37
+BENCH_STREAMED = 33
 # the repo's 100-genome scale row (tools/scale_run.py, BASELINE.md): W=4
 SCALE_GENOMES, SCALE_BP, SCALE_K, SCALE_ANCHORS = 100, 2_000_000, 21, ("g0", "g1")
 # tools/bigdict_run.py's two runs (label, --genomes, --mbp), each with its
@@ -294,6 +296,8 @@ BIGDICT_W1_KEYS = 103_997_432
 W4_MBP, W4_REPS, W4_CHUNK = 8.0, 3, 21
 
 KERNELS = [  # (wrapper, CUDA source, TPU kernel it replaces)
+    ("pack_bases", "panagram_tpu_torch/csrc/pack_bases.cu",
+     "none: panagram_tpu packs on the host (ops/codec.py pack_bases_np)"),
     ("pack_mix", "panagram_tpu_torch/csrc/pack_mix.cu",
      "panagram_tpu/ops/pallas_kernels.py:429"),
     ("probe_sorted", "panagram_tpu_torch/csrc/probe_sorted.cu",
@@ -305,7 +309,11 @@ KERNELS = [  # (wrapper, CUDA source, TPU kernel it replaces)
     ("mosaic_probe", "panagram_tpu_torch/csrc/mosaic_probe.cu",
      "tools/mosaic_probe.py:50"),
 ]
-ANCHOR_KERNELS = [n for n, _, _ in KERNELS if n != "mosaic_probe"]
+# the four kernels of one anchor chunk (ops.anchor.anchor_chunk_fast), and
+# with pack_bases those of each chunk of the stream (stream_anchor_chunks)
+ANCHOR_KERNELS = ["pack_mix", "probe_sorted", "fused_popcount_colsums",
+                  "masks_to_bytes"]
+STREAM_KERNELS = ["pack_bases", *ANCHOR_KERNELS]
 
 
 def max_abs_err(got, want) -> int:
@@ -497,7 +505,8 @@ class _Tee(io.StringIO):
 
 def bench_phase(card: str) -> dict:
     """bench_torch.main([]) in process, held to bench.py's problem and to
-    BENCH_LAUNCHES launches of each anchor kernel; returns its line."""
+    BENCH_LAUNCHES launches of each anchor kernel and BENCH_STREAMED of
+    pack_bases; returns its line."""
     import bench_torch
 
     print(f"bench phase [{card}]: bench_torch.main([]), bench.py's "
@@ -521,6 +530,7 @@ def bench_phase(card: str) -> dict:
         if want not in text:
             raise AssertionError(f"bench phase: no '{want}' line")
     want = {n: BENCH_LAUNCHES for n in ANCHOR_KERNELS}
+    want["pack_bases"] = BENCH_STREAMED
     if counts != want:
         raise AssertionError(f"bench phase: launches {counts}, want {want}")
     m = re.search(r"best rep wall ([0-9.]+) s: pack ([0-9.]+) s, copy "
@@ -530,7 +540,7 @@ def bench_phase(card: str) -> dict:
     if not m or min(rates) <= 0 or float(m[2]) <= 0 or float(m[3]) <= 0:
         raise AssertionError(f"bench phase: a rate, the packing or the "
                              f"copy-back at 0: {line}, {m and m[0]}")
-    print(f"  best pass of the stream: wall {m[1]} s, host packing {m[2]} s, "
+    print(f"  best pass of the stream: wall {m[1]} s, host staging {m[2]} s, "
           f"copy-back {m[3]} s (card time); launches {counts}; phase wall "
           f"{wall:.1f} s", flush=True)
     return line
@@ -628,7 +638,7 @@ def slice_phase(work: str, card: str) -> tuple[dict, dict, int]:
     build_peak = torch.cuda.max_memory_allocated()
     launches = dict(kernels.launches)
     print(f"index build: {wall:.2f} s wall, launches {launches}", flush=True)
-    for name in ANCHOR_KERNELS:
+    for name in STREAM_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the build")
     print(f"count stage peak device memory [{card}]: "
@@ -803,7 +813,7 @@ def device_dict_phase(work: str, card: str) -> dict:
     if dict_launches != chunks:
         raise AssertionError(f"pack_mix ran {dict_launches} times in the "
                              f"device-dict stage, not once per chunk ({chunks})")
-    for name in ANCHOR_KERNELS:
+    for name in STREAM_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  "--device-dict build")
@@ -841,14 +851,14 @@ def device_dict_phase(work: str, card: str) -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The four anchor kernels' wrappers swapped for their plain torch
+    """The stream's five kernels' wrappers swapped for their plain torch
     versions (ops/kernels.py's *_plain) while it is open: the route around
     them runs as it stands, on the same device, and launches no kernel."""
     from panagram_tpu_torch.ops import kernels
 
-    saved = {n: getattr(kernels, n) for n in ANCHOR_KERNELS}
+    saved = {n: getattr(kernels, n) for n in STREAM_KERNELS}
     try:
-        for n in ANCHOR_KERNELS:
+        for n in STREAM_KERNELS:
             setattr(kernels, n, getattr(kernels, n + "_plain"))
         yield
     finally:
@@ -1096,7 +1106,7 @@ def bigdict_phase(card: str, dev, bench_value: int, measured: dict):
         glen, alen = len(r.genomes[0]), len(r.anchor_codes)
         nk, W, nbytes = r.nkmers, r.nwords, r.nbytes
         per_pass = -(-nk // B.CHUNK)
-        want = {name: (1 + B.PASSES) * per_pass for name in ANCHOR_KERNELS}
+        want = {name: (1 + B.PASSES) * per_pass for name in STREAM_KERNELS}
         want["pack_mix"] += n * -(-(glen - k + 1) // B.CHUNK)
         if launches != want:
             raise AssertionError(f"bigdict {label}: launches {launches}, want "
@@ -1258,7 +1268,7 @@ def w4_steady_phase(work: str, card: str, dev):
     L = int(W4_MBP * 1e6)
     size = 1 << W4_CHUNK
     nk = L - r.k + 1
-    want = {name: (W4_REPS + 1) * -(-nk // size) for name in ANCHOR_KERNELS}
+    want = {name: (W4_REPS + 1) * -(-nk // size) for name in STREAM_KERNELS}
     if r.nwords != 4 or launches != want:
         raise AssertionError(f"w4_steady: W={r.nwords}, launches {launches}, "
                              f"want W=4 and {want}")
@@ -1283,7 +1293,7 @@ def w4_steady_phase(work: str, card: str, dev):
     with plain_kernels():
         pby, ptot, phits, pcols = rep1()
     after = {n: c for n, c in kernels.launches.items() if c}
-    per_rep = {name: -(-nk // size) for name in ANCHOR_KERNELS}
+    per_rep = {name: -(-nk // size) for name in STREAM_KERNELS}
     if once != per_rep or after != once:
         raise AssertionError(f"w4_steady: rep 1 again launched {once}, then "
                              f"{after} after the plain run; want {per_rep} "
@@ -1572,7 +1582,7 @@ def full_index_phase(work: str, seqs: dict, card: str, dev) -> dict:
     print("  --cores 1:", flush=True)
     anchor_phases(p1, ANCHORS)
 
-    for name in ANCHOR_KERNELS:
+    for name in STREAM_KERNELS:
         if launches[name] <= 0 or launches1[name] != launches[name]:
             raise AssertionError(f"full index: kernel {name} launched "
                                  f"{launches[name]} / {launches1[name]} times "

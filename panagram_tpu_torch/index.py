@@ -739,7 +739,7 @@ class Genome:
             self.init_chrs()
         chunk = self._anchor_chunk()
         # seconds per phase of the stage, logged at its end: encode (FASTA
-        # codes), pack (the host filling and 2-bit packing each chunk's
+        # codes), pack (the host copying each chunk's codes into its
         # buffer), wait (the rest of each chunk's request: the enqueue and
         # the wait for the card, or the mesh's collectives), copy (one
         # device only: the copy-back, a part of wait, the card's time on

@@ -14,13 +14,16 @@ protocols) because its TPU's device-to-host link was slow; this engine
 copies the dense bytes back.
 
 ``stream_anchor_chunks`` drives a chromosome through fixed-size chunks:
-host packing into a pinned staging buffer, the chunk's work on a side
-CUDA stream, and a ring of PIPELINE_DEPTH chunks in flight, so the host
+the host stages each chunk's raw codes (one byte a base) in a pinned
+buffer, and on a side CUDA stream the card uploads them, packs them (the
+pack_bases kernel, codec.pack_bases_np's layout) and runs the chunk's
+work, with a ring of PIPELINE_DEPTH chunks in flight, so the host
 consumes one chunk (BGZF writes, histograms) while the card computes the
-next.  Its steps are spans of ``panagram_tpu_torch.spans``; the packing's
-and the copy-back's (the card's time between events around the three
-copies, read once the chunk's results are waited for anyway) also go to
-the caller's ``phase``.
+next.  panagram_tpu packs on the host instead.  Its steps are spans of
+``panagram_tpu_torch.spans``; the staging's and the copy-back's (the
+card's time between events around the three copies, read once the
+chunk's results are waited for anyway) also go to the caller's
+``phase``.
 """
 
 from __future__ import annotations
@@ -176,27 +179,31 @@ def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int,
                          phase: dict | None = None):
     """Anchor one sequence's codes (uint8, >= 4 invalid) against `table`
     (bd.device_arrays()'s table, on the compute device; None: bd.table) of
-    the BucketedDict `bd`, with panagram_tpu's parameters.  `buf` is the
-    host staging array of chunk + k - 1 bytes (None: one is made).  Yields
-    (start, m, bitmap bytes uint8 [m, nbytes], popc int32 [m], colsums
-    int64 [ngenomes]) per chunk of `chunk` positions, in order.  The arrays
-    are views of reused buffers, valid until the next item is requested.
+    the BucketedDict `bd`, with panagram_tpu's parameters.  Yields (start,
+    m, bitmap bytes uint8 [m, nbytes], popc int32 [m], colsums int64
+    [ngenomes]) per chunk of `chunk` positions, in order.  The arrays are
+    views of reused buffers, valid until the next item is requested.
 
-    `state` and `capacity` size panagram_tpu's run-length transfers (its
-    hints across chromosomes, the run capacity); this engine copies the
-    dense bytes back, so they change nothing here.  trace=True prints each
-    chunk's wait for its results (its anchor.drain span) to stderr.
-    `phase`, when given, gains seconds under "pack" (the host packing the
-    chunks into their staging buffers: the anchor.pack spans) and "copy"
-    (the copy-back of the results, anchor.copyback: on a CUDA device the
-    card's time between events on the chunk's stream, on the CPU the
-    host's).
+    Each chunk's m + k - 1 codes are copied into a pinned staging slot of
+    chunk + k - 1 bytes and uploaded; kernels.pack_bases packs them on the
+    device (bases past them, up to chunk + k - 1, count as not ACGT), and
+    the device codes are freed before the chunk's kernels run.  `buf`, the
+    host staging array of panagram_tpu's host packing, and `state` and
+    `capacity`, which size panagram_tpu's run-length transfers (its hints
+    across chromosomes, the run capacity), change nothing here: this engine
+    stages in its own slots, packs on the device and copies the dense bytes
+    back.  trace=True prints each chunk's wait for its results (its
+    anchor.drain span) to stderr.  `phase`, when given, gains seconds under
+    "pack" (the host copying the chunks' codes into their staging slots:
+    the anchor.pack spans) and "copy" (the copy-back of the results,
+    anchor.copyback: on a CUDA device the card's time between events on
+    the chunk's stream, on the CPU the host's).
 
     Spans: anchor.alloc (once a call), anchor.pack, anchor.dispatch (the
-    host enqueueing the chunk's upload, kernels and copies), anchor.copyback
-    and anchor.drain (the host waiting for the chunk's results).  Counters:
-    anchor.positions_yielded and anchor.positions_computed (the padded
-    positions the kernels ran)."""
+    host enqueueing the chunk's upload, packing, kernels and copies),
+    anchor.copyback and anchor.drain (the host waiting for the chunk's
+    results).  Counters: anchor.positions_yielded and
+    anchor.positions_computed (the padded positions the kernels ran)."""
     phase = {} if phase is None else phase
     phase.setdefault("pack", 0.0)
     phase.setdefault("copy", 0.0)
@@ -209,18 +216,19 @@ def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int,
         L = chunk + k - 1
         n4 = (L + 3) // 4
         Ppad = -(-chunk // TILE_Q) * TILE_Q
-        slots = [_Slot(n4 + (L + 7) // 8, Ppad, nbytes, 32 * bd.nwords, cuda)
+        slots = [_Slot(L, Ppad, nbytes, 32 * bd.nwords, cuda)
                  for _ in range(PIPELINE_DEPTH)]
         stream = torch.cuda.Stream(device) if cuda else None
         if cuda:
             stream.wait_stream(torch.cuda.current_stream(device))
-        if buf is None or len(buf) < L:
-            buf = np.empty(L, np.uint8)
-        buf = buf[:L]
     pending: deque = deque()
 
-    def launch(slot: _Slot):
-        ib = slot.inbuf.to(device, non_blocking=True)
+    def launch(slot: _Slot, nvalid: int):
+        codes_d = slot.inbuf[:nvalid].to(device, non_blocking=True)
+        ib = torch.empty(n4 + (L + 7) // 8, dtype=torch.uint8, device=device)
+        kernels.pack_bases(codes_d, nvalid, L, ib)
+        # not live during the probe's sort, where the chunk's peak is
+        del codes_d
         by, popc, colsums = _anchor_chunk_padded(ib[:n4], ib[n4:], L, k,
                                                  table, bd.nbits, bd.cap,
                                                  bd.nwords, nbytes)
@@ -249,20 +257,17 @@ def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int,
     try:
         for i, start in enumerate(range(0, nkmers, chunk)):
             m = min(chunk, nkmers - start)
+            nvalid = m + k - 1
             with spans.span("anchor.pack", phase=phase, key="pack"):
-                buf[:] = 255   # invalid bases: positions past m never hit
-                buf[:m + k - 1] = codes[start:start + m + k - 1]
-                packed, nmask, _ = pack_bases_np(buf)
                 # slot i % DEPTH last held chunk i - DEPTH, which was
                 # yielded and consumed before this request
                 slot = slots[i % PIPELINE_DEPTH]
-                inb = slot.inbuf.numpy()
-                inb[:n4] = packed
-                inb[n4:] = nmask
+                np.copyto(slot.inbuf.numpy()[:nvalid],
+                          codes[start:start + nvalid])
             with spans.span("anchor.dispatch"):
                 with torch.cuda.stream(stream) if cuda else \
                         contextlib.nullcontext():
-                    launch(slot)
+                    launch(slot, nvalid)
             spans.count("anchor.positions_computed", Ppad)
             pending.append((start, m, slot))
             if len(pending) >= PIPELINE_DEPTH:

@@ -1,12 +1,16 @@
 """The device kernels of the port, with their plain versions.
 
-Each wrapper here replaces one Pallas TPU kernel: the four of the anchor
-chunk in ``panagram_tpu/ops/pallas_kernels.py``, and the capability probe
-of ``tools/mosaic_probe.py``:
+Each wrapper here but pack_bases replaces one Pallas TPU kernel: the four
+of the anchor chunk in ``panagram_tpu/ops/pallas_kernels.py``, and the
+capability probe of ``tools/mosaic_probe.py``.  pack_bases packs the anchor
+stream's bases on the card, where panagram_tpu packs them on the host:
 
 =========================  ===============================  ==================
 wrapper                    TPU kernel                       CUDA source
 =========================  ===============================  ==================
+pack_bases                 no TPU kernel: panagram_tpu      csrc/pack_bases.cu
+                           packs on the host
+                           (codec.pack_bases_np)
 pack_mix                   pack_mix_pallas                  csrc/pack_mix.cu
 probe_sorted               probe_sorted                     csrc/probe_sorted.cu
 fused_popcount_colsums     fused_popcount_colsums           csrc/popcount_colsums.cu
@@ -22,6 +26,10 @@ beside it, which is the specification the kernel is tested against.  Any
 other device raises.  Each source file notes what bounds its kernel on the
 card and what its design does about that; in short:
 
+* pack_bases: bytes (1 in and 3/8 out per base).  One thread packs 8
+  bases: one 64-bit load, the N flags and the 2-bit fields found for all 8
+  bytes at once by shifts and masks (SWAR), one 16-bit store of bases and
+  one mask byte; the grid is capped and loops.
 * pack_mix: bytes (8.4 per position), with integer work of the same
   order.  One thread does the four positions of a packed byte: one
   72-bit window from three aligned word loads, one bit-reverse-based pair
@@ -62,8 +70,9 @@ import torch
 from .codec import SENTINEL, mix64, split64, srl, to_i32, u32
 
 # kernel launches on the card since the last reset_launches(), by wrapper
-launches = {"pack_mix": 0, "probe_sorted": 0, "fused_popcount_colsums": 0,
-            "masks_to_bytes": 0, "mosaic_probe": 0}
+launches = {"pack_bases": 0, "pack_mix": 0, "probe_sorted": 0,
+            "fused_popcount_colsums": 0, "masks_to_bytes": 0,
+            "mosaic_probe": 0}
 
 # grid caps of the column-sum and pack_mix kernels (blocks per SM x the
 # card's 132 SMs): their blocks loop over the rows beyond
@@ -75,6 +84,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _SIGNATURES = {
+    "pg_pack_bases": [_P, _I64, _I64, _P, _P, _P],
     "pg_pack_mix": [_P, _I64, _P, _I64, _I32, _I64, _I64, _P, _P, _I32, _P],
     "pg_probe_sorted": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I64,
                         _I32, _P, _P],
@@ -141,6 +151,53 @@ def _launched(name: str, rc: int, device):
 
 def _stream(device) -> _P:
     return _P(torch.cuda.current_stream(device).cuda_stream)
+
+
+# ---------------------------------------------------------------------------
+# pack_bases
+# ---------------------------------------------------------------------------
+
+def pack_bases(codes: torch.Tensor, nvalid: int, L: int,
+               out: torch.Tensor) -> torch.Tensor:
+    """codes uint8 [>= nvalid] (one base a byte: 0-3 ACGT, >= 4 not) ->
+    out uint8 [>= ceil(L/4) + ceil(L/8)], returned: codec.pack_bases_np's
+    layout of L bases, the 2-bit bases (4 a byte, little-endian) in
+    out[:ceil(L/4)] and the N-mask (bit i set when base i is not ACGT,
+    little-endian bits) after them.  Bases at nvalid <= i < L are not ACGT,
+    whatever codes holds there: codes past nvalid is never read.  Bytes of
+    out past the two arrays are left as they are."""
+    _need(codes, torch.uint8, 1, "pack_bases codes")
+    _need(out, torch.uint8, 1, "pack_bases out")
+    n4, n8 = -(-L // 4), -(-L // 8)
+    if not 0 <= nvalid <= min(L, codes.numel()) or out.numel() < n4 + n8:
+        raise ValueError(f"pack_bases: nvalid={nvalid}, L={L}, codes "
+                         f"{tuple(codes.shape)}, out {tuple(out.shape)}")
+    if not _on_card(codes, out):
+        return pack_bases_plain(codes, nvalid, L, out)
+    if L:
+        dev = out.device
+        rc = _lib().pg_pack_bases(codes.data_ptr(), int(nvalid), int(L),
+                                  out.data_ptr(), out.data_ptr() + n4,
+                                  _stream(dev))
+        _launched("pack_bases", rc, dev)
+    return out
+
+
+def pack_bases_plain(codes, nvalid: int, L: int, out) -> torch.Tensor:
+    """Plain torch version of pack_bases: the codes past nvalid replaced by
+    255, then pack_bases_np's shifts over groups of 4 and 8 bases."""
+    dev = out.device
+    n4, n8 = -(-L // 4), -(-L // 8)
+    c = torch.full((8 * n8,), 255, dtype=torch.uint8, device=dev)
+    c[:nvalid] = codes[:nvalid]
+    bad = (c >= 4) & (torch.arange(8 * n8, device=dev) < L)
+    base = torch.where(c < 4, c, 0).to(torch.int32).reshape(-1, 4)
+    packed = (base << torch.arange(0, 8, 2, device=dev)).sum(1)
+    nmask = (bad.to(torch.int32).reshape(-1, 8)
+             << torch.arange(8, device=dev)).sum(1)
+    out[:n4] = packed[:n4].to(torch.uint8)
+    out[n4:n4 + n8] = nmask.to(torch.uint8)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -504,6 +561,7 @@ def bound_bytes(name: str, **shape) -> int:
     once, each output written once, and of a table only what the queries
     need.  Pure arithmetic on the shape:
 
+    pack_bases             L (L in, ceil(L/4) + ceil(L/8) out)
     pack_mix               L, k, Ppad
     probe_sorted           Q, nwords, tile_q, table_bytes (the table bytes
                            these queries need: probe_need_bytes)
@@ -512,6 +570,8 @@ def bound_bytes(name: str, **shape) -> int:
     mosaic_probe           n
     """
     g = shape.__getitem__
+    if name == "pack_bases":
+        return g("L") + -(-g("L") // 4) + -(-g("L") // 8)
     if name == "pack_mix":
         return -(-g("L") // 4) + -(-g("L") // 8) + 8 * g("Ppad")
     if name == "probe_sorted":

@@ -5,7 +5,8 @@
 
 builds a main-path-sized chunk (2^22 positions, k=31, a 1.3e7-key table;
 W=1 with 30 genomes, then W=2 with 40, or the --genomes given), checks
-each of the four anchor kernels against its plain version and times it,
+the stream's pack_bases and each of the four anchor kernels against its
+plain version and times it,
 prints probe_sorted's table bytes (those its queries need, and the whole
 rows they touch) with its share of each bound, then times one whole
 ``ops.anchor.anchor_chunk_fast`` with its inputs on the card and prints it as
@@ -193,8 +194,8 @@ def chunk_inputs(dev, ngenomes: int, rng) -> types.SimpleNamespace:
     packed, nmask, _ = pack_bases_np(codes)
     return types.SimpleNamespace(
         L=L, k=K, W=W, ngenomes=ngenomes, nbytes=(ngenomes + 7) // 8, bd=bd,
-        nkeys=len(keys), p=torch.from_numpy(packed).to(dev),
-        n=torch.from_numpy(nmask).to(dev))
+        nkeys=len(keys), codes=torch.from_numpy(codes).to(dev),
+        p=torch.from_numpy(packed).to(dev), n=torch.from_numpy(nmask).to(dev))
 
 
 def probe_case(hi, lo, bd) -> types.SimpleNamespace:
@@ -239,8 +240,8 @@ def probe_line(pc, bd) -> str:
 
 
 def kernel_cases(inp) -> types.SimpleNamespace:
-    """The four anchor kernels at the chunk's shapes: cases {name: (kernel
-    call, plain call)}, shapes {name: the arguments of kernels.bound_bytes}
+    """pack_bases (the chunk's codes, all valid) and the four anchor kernels
+    at the chunk's shapes: cases {name: (kernel call, plain call)}, shapes {name: the arguments of kernels.bound_bytes}
     (for probe_sorted with the table bytes its queries need, counted on the
     card), probe_case's result `probe` and the share of positions that
     hit."""
@@ -251,13 +252,20 @@ def kernel_cases(inp) -> types.SimpleNamespace:
     pc = probe_case(hi, lo, bd)
     rows, pargs = pc.rows, pc.args
     torch.cuda.synchronize()
+    packed_out = torch.empty(inp.p.numel() + inp.n.numel(), dtype=torch.uint8,
+                             device=p.device)
+    plain_out = torch.empty_like(packed_out)
     shapes = {
+        "pack_bases": dict(L=L),
         "pack_mix": dict(L=L, k=K, Ppad=CHUNK),
         "probe_sorted": pc.shape,
         "fused_popcount_colsums": dict(P=CHUNK, W=W, ngenomes=32 * W),
         "masks_to_bytes": dict(P=CHUNK, W=W, nbytes=nbytes),
     }
     cases = {
+        "pack_bases": (
+            lambda: (kernels.pack_bases(inp.codes, L, L, packed_out),),
+            lambda: (kernels.pack_bases_plain(inp.codes, L, L, plain_out),)),
         "pack_mix": (lambda: kernels.pack_mix(p, n, L, K, CHUNK),
                      lambda: kernels.pack_mix_plain(p, n, L, K, CHUNK)),
         "probe_sorted": (lambda: (kernels.probe_sorted(*pargs),),

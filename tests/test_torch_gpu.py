@@ -540,6 +540,116 @@ def test_stream_times_the_copy_back_on_card(cuda, trace):
     assert phase["copy"] > 0 and phase["pack"] > 0
 
 
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("L,cut", [((1 << 22) + 30, 0),
+                                   ((1 << 22) + 30, (1 << 20) + 5),
+                                   ((1 << 21) + 20, 0), ((1 << 21) + 20, 13),
+                                   (37, 0), (37, 11)])
+def test_pack_bases_kernel(cuda, L, cut, offset):
+    """The CUDA pack_bases against pack_bases_plain on the card, at the two
+    anchor cells' chunks (2^22 + 30 and 2^21 + 20 bases) and an odd small
+    L, with nvalid = L - cut (cuts off byte and word boundaries: codes
+    past nvalid are junk), codes with N and other values >= 4; at offset 3
+    the codes and the output are unaligned (the byte-by-byte path).  One
+    launch; nothing written past the two arrays."""
+    rng = np.random.default_rng(L + cut + offset)
+    codes = _chunk(rng, L)
+    codes[rng.choice(L, L // 100, replace=False)] = 7
+    nvalid = L - cut
+    c = torch.from_numpy(np.concatenate(
+        [np.zeros(offset, np.uint8), codes])).to(cuda)[offset:]
+    n = -(-L // 4) + -(-L // 8)
+    out = torch.full((offset + n + 9,), 0xAB, dtype=torch.uint8, device=cuda)
+    want = out.clone()
+    before = kernels.launches["pack_bases"]
+    kernels.pack_bases(c, nvalid, L, out[offset:])
+    kernels.pack_bases_plain(c, nvalid, L, want[offset:])
+    torch.cuda.synchronize()
+    assert kernels.launches["pack_bases"] == before + 1
+    assert torch.equal(out, want)
+    if L < 100:
+        buf = np.full(L, 255, np.uint8)
+        buf[:nvalid] = codes[:nvalid]
+        packed, nmask, _ = pack_bases_np(buf)
+        assert np.array_equal(out[offset:offset + n].cpu().numpy(),
+                              np.concatenate([packed, nmask]))
+
+
+def _stream_case(rng, chunk, nk, ngenomes=30):
+    codes = _chunk(rng, nk + K - 1)
+    keys, masks = _dict_for(rng, codes, ngenomes)
+    return codes, BucketedDict.build(keys, masks, ngenomes, K)
+
+
+def test_stream_packs_each_chunk_once_on_card(cuda):
+    """A stream of c chunks (the last one short) launches pack_bases c
+    times, as each anchor kernel, and yields the CPU stream's items."""
+    rng = np.random.default_rng(19)
+    chunk = 1 << 16
+    nk = 3 * chunk - 999
+    codes, bd = _stream_case(rng, chunk, nk)
+
+    def run(on):
+        return [(s, m, by.copy(), p.copy(), c.copy())
+                for s, m, by, p, c in anchor_ops.stream_anchor_chunks(
+                    codes, nk, chunk, None, None, on, 4, 30, K)]
+
+    on_card = bd.to(cuda)
+    torch.cuda.synchronize()
+    before = dict(kernels.launches)
+    got = run(on_card)
+    torch.cuda.synchronize()
+    after = dict(kernels.launches)
+    want = run(bd.to("cpu"))
+    assert {n: after[n] - before[n] for n in after} == {
+        n: 3 if n in ("pack_bases", "pack_mix", "probe_sorted",
+                      "fused_popcount_colsums", "masks_to_bytes") else 0
+        for n in after}
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g[:2] == w[:2]
+        assert all(np.array_equal(a, b) for a, b in zip(g[2:], w[2:]))
+
+
+def test_stream_peak_no_higher_than_host_packing(cuda):
+    """One streamed 2^22-position chunk peaks at no more device memory than
+    the same chunk packed on the host and uploaded packed, as the stream
+    did before: the device codes are freed before the chunk's kernels."""
+    rng = np.random.default_rng(20)
+    chunk = 1 << 22
+    codes, bd = _stream_case(rng, chunk, chunk)
+    bd = bd.to(cuda)
+    L = chunk + K - 1
+    n4 = -(-L // 4)
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    def streamed():
+        for _ in anchor_ops.stream_anchor_chunks(codes, chunk, chunk, None,
+                                                 None, bd, 4, 30, K):
+            pass
+
+    def host_packed():
+        packed, nmask, _ = pack_bases_np(codes)
+        ib = torch.from_numpy(np.concatenate([packed, nmask])).to(cuda)
+        out = anchor_ops._anchor_chunk_padded(ib[:n4], ib[n4:], L, K,
+                                              bd.table, bd.nbits, bd.cap,
+                                              bd.nwords, 4)
+        for t in out:
+            t.cpu()
+
+    streamed()
+    host_packed()
+    assert peak(streamed) <= peak(host_packed)
+
+
 @pytest.mark.parametrize("ngenomes", [30, 40, 100])
 def test_merge_memory_bounded_per_pair(cuda, ngenomes):
     """The dictionary merge of T (key, genome) pairs peaks under 64 bytes

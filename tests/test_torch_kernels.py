@@ -214,6 +214,7 @@ def test_fused_popcount_colsums_matches_numpy(P, W, N, ones):
 
 
 @pytest.mark.parametrize("name,shape,want", [
+    ("pack_bases", dict(L=(1 << 22) + 30), 4_194_334 + 1_048_584 + 524_292),
     ("pack_mix", dict(L=(1 << 22) + 30, k=31, Ppad=1 << 22),
      1_048_584 + 524_292 + 33_554_432),
     ("probe_sorted", dict(Q=1 << 22, nwords=1, tile_q=1024,
@@ -305,16 +306,17 @@ def test_probe_rows_are_the_rows_the_plain_probe_gathers():
 
 
 def test_build_compiles_the_five_sources_of_the_package():
-    """One library beside the package, from the five sources of csrc/, each
-    with the C entry point its wrapper calls."""
+    """One library beside the package, from the sources of csrc/ (the five
+    kernels that replace TPU kernels, and pack_bases), each with the C
+    entry point its wrapper calls."""
     from panagram_tpu_torch import _build
 
     assert os.path.dirname(_build.LIB_PATH) == _build.BUILD_DIR
     assert os.path.dirname(_build.BUILD_DIR) == os.path.dirname(_build.SRC_DIR)
     srcs = _build.sources()
     assert [os.path.basename(p) for p in srcs] == [
-        "masks_to_bytes.cu", "mosaic_probe.cu", "pack_mix.cu",
-        "popcount_colsums.cu", "probe_sorted.cu"]
+        "masks_to_bytes.cu", "mosaic_probe.cu", "pack_bases.cu",
+        "pack_mix.cu", "popcount_colsums.cu", "probe_sorted.cu"]
     text = "".join(open(p).read() for p in srcs)
     for entry in kernels._SIGNATURES:
         assert f'extern "C" int {entry}(' in text, entry
