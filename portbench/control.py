@@ -7,7 +7,8 @@ The guarantee broken is the canonical k-mer (configs' "canonical"): the
 control reads each position's forward k-mer and never its reverse
 complement, the step a later change could be tempted to drop.  In an
 anchor cell the control's stream answers each chunk from the reference's
-(canonical, exact) dictionary with forward words; in a build cell its
+(canonical, exact) dictionary, merged one genome's set at a time, with
+forward words; in a build cell its
 builder counts forward words, merges them as the reference does and lays
 the result out through the program's layout.  It runs the cell as
 portbench.run does, short window and all, and prints the same lines; the
@@ -28,6 +29,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from portbench import run  # noqa: E402
+from portbench.kinds import anchor  # noqa: E402
 from portbench.reference import kmers as ref  # noqa: E402
 
 
@@ -69,12 +71,28 @@ class _ForwardBuilder:
         return bd, table, pan
 
 
+class _GenomeSets:
+    """The anchor cell's genomes' canonical k-mer sets, each made from its
+    chromosomes when it is read, so that one is held at a time."""
+
+    def __init__(self, cell):
+        self.cell = cell
+
+    def __len__(self):
+        return len(self.cell.chrs)
+
+    def __getitem__(self, g):
+        return anchor.genome_set(self.cell.chrs[g], self.cell.k,
+                                 self.cell.device)
+
+
 def control(cell):
     """Puts the control in the set-up cell's program's place."""
     if cell.mix["kind"] == "anchor":
-        sets = [ref.kmer_set(torch.from_numpy(g).to(cell.device), cell.k)
-                for g in cell.genomes]
-        keys = ref.union_keys(sets)
+        sets = _GenomeSets(cell)
+        keys = torch.zeros(0, dtype=torch.int64, device=cell.device)
+        for g in range(len(sets)):
+            keys = ref.union_keys([keys, sets[g]])
         cell.stream = _forward_stream(keys, ref.masks(keys, sets), cell.device)
     elif cell.mix["kind"] == "build":
         cell.builder = _ForwardBuilder

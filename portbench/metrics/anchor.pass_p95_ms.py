@@ -1,5 +1,6 @@
-"""95th percentile of one pass's wall over every pass of the window, from
-the pass's first packing to its last yielded chunk (host clock, ms)."""
+"""95th percentile of one pass's wall over every pass of the traced
+window, from the pass's first packing to its last yielded chunk (host
+clock, ms)."""
 
 import numpy as np
 
