@@ -1107,7 +1107,9 @@ def bigdict_phase(card: str, dev, bench_value: int, measured: dict):
         nk, W, nbytes = r.nkmers, r.nwords, r.nbytes
         per_pass = -(-nk // B.CHUNK)
         want = {name: (1 + B.PASSES) * per_pass for name in STREAM_KERNELS}
-        want["pack_mix"] += n * -(-(glen - k + 1) // B.CHUNK)
+        # the builder packs and mixes each of its chunks on the card
+        for name in ("pack_bases", "pack_mix"):
+            want[name] += n * -(-(glen - k + 1) // B.CHUNK)
         if launches != want:
             raise AssertionError(f"bigdict {label}: launches {launches}, want "
                                  f"{want} (the builder's chunks and "

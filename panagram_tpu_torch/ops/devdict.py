@@ -1,9 +1,11 @@
 """Device-resident pan-kmer dictionary builder (``index --device-dict``).
 
 The counterpart of panagram_tpu.ops.devdict.  Sequence chunks go to the
-device 2-bit packed; the pack_mix kernel turns each into mixed k-mer
-pairs, which are sorted and deduplicated there and merged straight into
-the growing (keys, masks) dictionary with the genome's presence bit.
+device one base a byte and the pack_bases kernel packs them there (the
+JAX package packs them on the host); the pack_mix kernel turns each into
+mixed k-mer pairs, which are sorted and deduplicated there and merged
+straight into the growing (keys, masks) dictionary with the genome's
+presence bit.
 Nothing but a count per flush comes back until the finished dictionary
 does.
 
@@ -19,21 +21,26 @@ panagram_tpu padded every array to fixed, power-of-two shapes so that XLA
 compiled each program once; torch runs eagerly, so here a chunk is as long
 as its sequence needs (up to `chunk` positions), and a merge sorts only the
 live prefix of the capacity-sized arrays.
+
+Its steps are spans of ``panagram_tpu_torch.spans``: devdict.pack (a
+chunk's staging, upload and packing, host clock), devdict.chunk,
+devdict.union and devdict.merge (with a CUDA event pair on the card),
+devdict.sync (the host waiting for the count) and devdict.grow (the
+arrays growing); counters devdict.positions (k-mer positions a chunk),
+devdict.flushes and devdict.merged_rows (the rows each merge sorts).
 """
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
+from .. import spans
 from . import kernels
 from .codec import (
     SENTINEL,
     as_signed64,
     flip64,
-    pack_bases_np,
     sort_u64,
     to_i32,
     u64_np,
@@ -55,11 +62,12 @@ def _sort_dedup(s: torch.Tensor) -> torch.Tensor:
 
 def _chunk_mixed_distinct(packed: torch.Tensor, nmask: torch.Tensor, L: int,
                           k: int) -> torch.Tensor:
-    """packed/nmask (codec.pack_bases_np, on the device) of L bases -> the
-    sorted distinct mixed keys of its L - k + 1 windows, SENTINEL-padded to
-    that length.  The pack_mix kernel gives each window's mixed pair; a
-    window with an N gives mix64(SENTINEL), which no canonical key (< 2^62)
-    mixes to, as mix64 is a bijection, so it maps back to SENTINEL."""
+    """packed/nmask (codec.pack_bases_np's layout, on the device) of L
+    bases -> the sorted distinct mixed keys of its L - k + 1 windows,
+    SENTINEL-padded to that length.  The pack_mix kernel gives each
+    window's mixed pair; a window with an N gives mix64(SENTINEL), which no
+    canonical key (< 2^62) mixes to, as mix64 is a bijection, so it maps
+    back to SENTINEL."""
     P = L - k + 1
     hi, lo = kernels.pack_mix(packed, nmask, L, k, P)
     m = (hi.to(torch.int64) << 32) | (lo.to(torch.int64) & 0xFFFFFFFF)
@@ -126,7 +134,13 @@ class DeviceDictBuilder:
     Chunks do not merge into the dictionary one by one (each merge sorts
     the whole dictionary): up to FLUSH_CHUNKS chunk key sets of one genome
     are buffered and tree-unioned before one merge, and the only host
-    synchronisation is one count read per flush."""
+    synchronisation is one count read per flush.
+
+    `walls` (s) gains each step's span: "pack" and "sync" on the host's
+    clock; "chunk_dispatch", "union_dispatch" and "merge_dispatch" the
+    card's seconds between the steps' events on a CUDA device (read once a
+    sync has waited for them), the host's elsewhere; "first_sync" the
+    first flush's wait; "flushes" the merges."""
 
     FLUSH_CHUNKS = 8
 
@@ -136,6 +150,7 @@ class DeviceDictBuilder:
         self.ngenomes = ngenomes
         self.nwords = (ngenomes + 31) // 32
         self.device = torch.device(device)
+        self._cuda = self.device.type == "cuda"
         self.chunk = chunk
         self.keys = None        # int64 [capacity], sorted, SENTINEL-padded
         self.masks = None       # int32 [capacity, W]
@@ -145,9 +160,6 @@ class DeviceDictBuilder:
         self._buf = []          # buffered chunk key sets (one genome)
         self._buf_gid = None
         self._buf_real = 0      # upper bound on real keys in the buffer
-        # stage walls (s): dispatch walls measure queueing on the host; on
-        # a CUDA device the device work lands in 'sync', the one blocking
-        # read per flush
         self.walls = {"pack": 0.0, "chunk_dispatch": 0.0,
                       "union_dispatch": 0.0, "merge_dispatch": 0.0,
                       "sync": 0.0, "first_sync": 0.0, "flushes": 0}
@@ -164,22 +176,38 @@ class DeviceDictBuilder:
         have = 0 if self.keys is None else self.keys.shape[0]
         if cap <= have:
             return
-        buffered = self.FLUSH_CHUNKS * self.chunk
-        check_device_budget(0, self.device, "device dictionary builder",
-                            (8 + 4 * self.nwords) * cap + 8 * buffered
-                            + merge_bytes(cap + buffered, self.nwords))
-        pad = cap - have
-        keys = torch.full((pad,), SENTINEL, dtype=torch.int64,
-                          device=self.device)
-        masks = torch.zeros(pad, self.nwords, dtype=torch.int32,
-                            device=self.device)
-        if self.keys is not None:
-            keys = torch.cat([self.keys, keys])
-            masks = torch.cat([self.masks, masks])
-        self.keys, self.masks = keys, masks
+        with spans.span("devdict.grow"):
+            buffered = self.FLUSH_CHUNKS * self.chunk
+            check_device_budget(0, self.device, "device dictionary builder",
+                                (8 + 4 * self.nwords) * cap + 8 * buffered
+                                + merge_bytes(cap + buffered, self.nwords))
+            pad = cap - have
+            keys = torch.full((pad,), SENTINEL, dtype=torch.int64,
+                              device=self.device)
+            masks = torch.zeros(pad, self.nwords, dtype=torch.int32,
+                                device=self.device)
+            if self.keys is not None:
+                keys = torch.cat([self.keys, keys])
+                masks = torch.cat([self.masks, masks])
+            self.keys, self.masks = keys, masks
+
+    def _upload(self, codes: np.ndarray) -> torch.Tensor:
+        """codes (uint8) on the device: through a pinned staging block and
+        a copy that does not wait for the card's queued work on a CUDA
+        device (torch's host allocator reuses the block once the copy is
+        done), as they are on the CPU."""
+        if not self._cuda:
+            return torch.from_numpy(codes)
+        host = torch.empty(len(codes), dtype=torch.uint8, pin_memory=True)
+        host.numpy()[:] = codes
+        return host.to(self.device, non_blocking=True)
 
     def add_sequence(self, gid: int, codes: np.ndarray):
-        """Stream one sequence of genome `gid` (uint8 codes) into the dict."""
+        """Stream one sequence of genome `gid` (uint8 codes) into the dict.
+        Each chunk's codes go to the device as they are, and
+        kernels.pack_bases packs them there into codec.pack_bases_np's
+        layout of chunk + k - 1 bases (those past the chunk's own count as
+        not ACGT, so their windows give SENTINEL)."""
         k = self.k
         n = len(codes) - k + 1
         if n <= 0:
@@ -187,22 +215,24 @@ class DeviceDictBuilder:
         if self._buf_gid is not None and self._buf_gid != gid:
             self._flush_buffer()
         self._buf_gid = gid
+        codes = np.ascontiguousarray(codes, np.uint8)
         chunk = min(self.chunk, n)
-        buf = np.empty(chunk + k - 1, np.uint8)
+        L = chunk + k - 1
+        n4 = (L + 3) // 4
         for start in range(0, n, chunk):
             m = min(chunk, n - start)
-            t0 = time.perf_counter()
-            buf[:] = 255   # invalid bases: windows past m are SENTINEL
-            buf[:m + k - 1] = codes[start:start + m + k - 1]
-            packed, nmask, L = pack_bases_np(buf)
-            t1 = time.perf_counter()
-            self._buf.append(_chunk_mixed_distinct(
-                torch.from_numpy(packed).to(self.device),
-                torch.from_numpy(nmask).to(self.device), L, k))
+            with spans.span("devdict.pack", phase=self.walls, key="pack"):
+                nvalid = m + k - 1
+                codes_d = self._upload(codes[start:start + nvalid])
+                ib = torch.empty(n4 + (L + 7) // 8, dtype=torch.uint8,
+                                 device=self.device)
+                kernels.pack_bases(codes_d, nvalid, L, ib)
+            with spans.span("devdict.chunk", device=self._cuda,
+                            phase=self.walls, key="chunk_dispatch"):
+                self._buf.append(_chunk_mixed_distinct(ib[:n4], ib[n4:], L,
+                                                       k))
+            spans.count("devdict.positions", m)
             self._buf_real += m
-            t2 = time.perf_counter()
-            self.walls["pack"] += t1 - t0
-            self.walls["chunk_dispatch"] += t2 - t1
             if len(self._buf) >= self.FLUSH_CHUNKS:
                 self._flush_buffer()
 
@@ -213,45 +243,50 @@ class DeviceDictBuilder:
         if not self._buf:
             return
         parts, self._buf = self._buf, []
-        t0 = time.perf_counter()
-        while len(parts) > 1:
-            nxt = [_union_sorted(parts[i], parts[i + 1])
-                   for i in range(0, len(parts) - 1, 2)]
-            parts = nxt + parts[len(nxt) * 2:]
-        # every real key of the buffer lies in the first real_bound rows
-        # (at most one per buffered position), the rest are SENTINELs
-        new_keys = parts[0][:self._buf_real]
+        with spans.span("devdict.union", device=self._cuda, phase=self.walls,
+                        key="union_dispatch"):
+            while len(parts) > 1:
+                nxt = [_union_sorted(parts[i], parts[i + 1])
+                       for i in range(0, len(parts) - 1, 2)]
+                parts = nxt + parts[len(nxt) * 2:]
+            # every real key of the buffer lies in the first real_bound
+            # rows (at most one per buffered position), the rest are
+            # SENTINELs
+            new_keys = parts[0][:self._buf_real]
         self._buf_real = 0
-        t1 = time.perf_counter()
+        sync0 = self.walls["sync"]
         self._sync_count()
-        t2 = time.perf_counter()
+        if self.walls["flushes"] == 0:
+            self.walls["first_sync"] = self.walls["sync"] - sync0
         live = self.count + new_keys.shape[0]
         self._ensure_capacity(live)
-        keys, masks, cnt = _merge_into(self.keys[:live], self.masks[:live],
-                                       new_keys, self.nwords, self._buf_gid)
-        self.keys[:live] = keys
-        self.masks[:live] = masks
+        with spans.span("devdict.merge", device=self._cuda, phase=self.walls,
+                        key="merge_dispatch"):
+            keys, masks, cnt = _merge_into(self.keys[:live],
+                                           self.masks[:live], new_keys,
+                                           self.nwords, self._buf_gid)
+            self.keys[:live] = keys
+            self.masks[:live] = masks
+        spans.count("devdict.flushes", 1)
+        spans.count("devdict.merged_rows", live + new_keys.shape[0])
         self._cnt_dev = cnt
         self._pending += 1
-        self.walls["union_dispatch"] += t1 - t0
-        self.walls["sync"] += t2 - t1
-        if self.walls["flushes"] == 0:
-            self.walls["first_sync"] = t2 - t1
-        self.walls["merge_dispatch"] += time.perf_counter() - t2
         self.walls["flushes"] += 1
 
     def _sync_count(self):
+        """Read the latest merge's count (the host waits for the card),
+        then the event pairs of the steps it waited for."""
         if self._cnt_dev is not None and self._pending:
-            self.count = int(self._cnt_dev)
+            with spans.span("devdict.sync", phase=self.walls, key="sync"):
+                self.count = int(self._cnt_dev)
             self._pending = 0
+            spans.settle()
 
     def synced_count(self) -> int:
         """The exact key count (one device round trip if merges are
         pending), after flushing the buffer."""
         self._flush_buffer()
-        t0 = time.perf_counter()
         self._sync_count()
-        self.walls["sync"] += time.perf_counter() - t0
         return self.count
 
     def add_genome(self, gid: int, code_arrays):
