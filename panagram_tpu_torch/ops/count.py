@@ -10,11 +10,15 @@ k-mers seen at least ``min_count`` times across all reads are kept.
 Device memory stays bounded by the chunk size, not the genome's: every
 SPILL_CHUNKS chunk sets are merged on the device by one more unique and
 the result moves to the host, where the spilled groups are merged as
-panagram_tpu.ops.count merges its chunk sets.
+panagram_tpu.ops.count merges its chunk sets.  On a CUDA device a spill
+lands in page-locked memory from torch's caching host allocator
+(_readback), so the copy runs at the link's rate and a later upload of
+the set (ops.dictionary.build_dictionary) reads page-locked memory too.
 
 Spans (panagram_tpu_torch.spans), timed on the card: count.upload,
 count.unique (packing and unique) and count.readback (a spill's copy to
-the host).
+the host); counter count.readback.pinned, one a spill that landed
+page-locked.
 """
 
 from __future__ import annotations
@@ -23,10 +27,35 @@ import numpy as np
 import torch
 
 from .. import spans
-from .codec import check_k, pack_kmers, u64_np
+from .codec import check_k, pack_kmers
 
 DEFAULT_CHUNK = 1 << 22  # positions per device chunk
 SPILL_CHUNKS = 4         # chunk sets held on the device before a spill
+
+
+def _pinned_empty(shape, dtype) -> torch.Tensor:
+    """A page-locked host tensor from torch's caching host allocator."""
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
+def _readback(tensors, pinned: bool) -> list[np.ndarray]:
+    """One spill's host copies, writeable numpy arrays of the tensors'
+    dtypes.  With pinned (the tensors on a CUDA device) they land in
+    page-locked blocks; each array holds its tensor, so a block goes back
+    to the allocator's cache only when the caller drops the array.  Where
+    no page-locked block can be had, the spill lands pageable as without
+    pinned (on the CPU device: views of the tensors, no copy)."""
+    if pinned:
+        try:
+            hosts = [_pinned_empty(x.shape, x.dtype) for x in tensors]
+        except RuntimeError:
+            pass
+        else:
+            for h, x in zip(hosts, tensors):
+                h.copy_(x)
+            spans.count("count.readback.pinned", 1)
+            return [h.numpy() for h in hosts]
+    return [x.detach().cpu().numpy() for x in tensors]
 
 
 def distinct_kmers_chunked(code_arrays, k: int, chunk: int = DEFAULT_CHUNK,
@@ -46,7 +75,8 @@ def distinct_kmers_chunked(code_arrays, k: int, chunk: int = DEFAULT_CHUNK,
                 torch.cat(group), sorted=True)
         group.clear()
         with spans.span("count.readback", device=cuda):
-            spilled.append(u64_np(merged))
+            (keys,) = _readback([merged], cuda)
+            spilled.append(keys.view(np.uint64))
 
     for codes in code_arrays:
         codes = np.asarray(codes, np.uint8)
@@ -131,7 +161,8 @@ def counted_kmers_chunked(code_arrays, k: int, min_count: int = 2,
                 torch.cat([g[1] for g in group]))
         group.clear()
         with spans.span("count.readback", device=cuda):
-            spilled.append((u64_np(ks), cs.cpu().numpy()))
+            ks, cs = _readback([ks, cs], cuda)
+            spilled.append((ks.view(np.uint64), cs))
         if len(spilled) > SPILL_CHUNKS:
             spilled[:] = [_merge_counted(spilled)]
 

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from panagram_tpu_torch import index as port_index
+from panagram_tpu_torch import spans
 from panagram_tpu_torch.io.fasta import seq_to_codes
 from panagram_tpu_torch.ops import count, devdict, dictionary, kernels, lookup
 from panagram_tpu_torch.ops import anchor as anchor_ops
@@ -826,6 +827,80 @@ def test_fastq_count_on_card_bounded(cuda):
     assert long_ <= 1.25 * short
     want = count.counted_kmers_chunked(rs, K, chunk=chunk, device="cpu")
     assert len(got) > 0 and np.array_equal(got, want)
+
+
+def _pinned(a):
+    return torch.from_numpy(a.view(np.int64)).is_pinned()
+
+
+@pytest.mark.parametrize("chunks", [3, 13])
+def test_count_spills_land_page_locked(cuda, chunks):
+    """Both counting functions on the card equal the CPU's bit for bit
+    with one spill and with several, and every spill lands page-locked
+    (count.readback.pinned = the count.readback spans); a one-spill set is
+    the page-locked block itself."""
+    chunk = 1 << 14
+    rng = np.random.default_rng(chunks)
+    codes = rng.integers(0, 4, chunks * chunk + K - 1).astype(np.uint8)
+    codes[rng.choice(len(codes), len(codes) // 100, replace=False)] = 4
+    reads = [codes[s:s + 150] for s in range(0, len(codes) - 150, 75)]
+    with spans.recording() as rec:
+        got = count.distinct_kmers_chunked([codes], K, chunk, device=cuda)
+        got_c = count.counted_kmers_chunked(reads, K, 2, chunk, device=cuda)
+    want = count.distinct_kmers_chunked([codes], K, chunk, device="cpu")
+    want_c = count.counted_kmers_chunked(reads, K, 2, chunk, device="cpu")
+    assert got.dtype == np.uint64 and got.flags.writeable
+    assert np.array_equal(got, want) and len(want)
+    assert np.array_equal(got_c, want_c) and len(want_c)
+    tot = rec.totals()
+    spills = tot["spans"]["count.readback"]["count"]
+    assert spills >= -(-chunks // count.SPILL_CHUNKS) + 1
+    assert tot["counters"]["count.readback.pinned"] == spills
+    assert _pinned(got) == (chunks <= count.SPILL_CHUNKS)
+
+
+def test_count_result_keeps_its_page_locked_block(cuda):
+    """A first set kept alive is unchanged after a second count of the
+    same size, which takes a block of its own; the next count after a set
+    is dropped takes a cached block and allocates none."""
+    chunk = 1 << 16
+    rng = np.random.default_rng(23)
+    a, b = (rng.integers(0, 4, 2 * chunk + K - 1).astype(np.uint8)
+            for _ in range(2))
+    first = count.distinct_kmers_chunked([a], K, chunk, device=cuda)
+    keep = first.copy()
+    second = count.distinct_kmers_chunked([b], K, chunk, device=cuda)
+    assert _pinned(first) and _pinned(second)
+    assert not np.shares_memory(first, second)
+    assert np.array_equal(first, keep)
+    assert np.array_equal(
+        second, count.distinct_kmers_chunked([b], K, chunk, device="cpu"))
+    del second
+    before = torch.cuda.host_memory_stats()["num_host_alloc"]
+    third = count.distinct_kmers_chunked([b], K, chunk, device=cuda)
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == before
+    assert _pinned(third) and np.array_equal(first, keep)
+
+
+def test_dictionary_over_page_locked_sets(cuda):
+    """build_dictionary over the card's page-locked sets equals the one
+    built from their pageable copies."""
+    chunk = 1 << 16
+    rng = np.random.default_rng(29)
+    base = rng.integers(0, 4, 3 * chunk).astype(np.uint8)
+    sets = []
+    for _ in range(5):
+        g = base.copy()
+        at = rng.choice(len(g), len(g) // 100, replace=False)
+        g[at] = rng.integers(0, 4, len(at)).astype(np.uint8)
+        sets.append(count.distinct_kmers_chunked([g], K, chunk, device=cuda))
+    assert all(_pinned(s) for s in sets)
+    copies = [s.copy() for s in sets]
+    assert not any(_pinned(c) for c in copies)
+    got = dictionary.build_dictionary(sets, K, 5, device=cuda)
+    want = dictionary.build_dictionary(copies, K, 5, device=cuda)
+    assert np.array_equal(got.keys, want.keys) and len(want.keys)
+    assert np.array_equal(got.masks, want.masks)
 
 
 def _write_genomes(tmp, rng, n=4, bp=700_000):
