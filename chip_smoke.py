@@ -144,7 +144,7 @@
    (MESH_KERNELS) once per chunk and the others never (the rank's own
    counts, sent back by parallel.mesh.launch), each anchor's phases line
    must name only the phases the mesh route times (MESH_PHASES, its host
-   packing above 0), and ``--mesh 2`` must
+   staging above 0), and ``--mesh 2`` must
    raise naming the card count.  Prints each build's wall, its dict and
    anchor stage walls, and the rank's peak device memory beside the
    one-device build's.
@@ -340,7 +340,6 @@ def kernel_phase(dev, ngenomes: int, rng, flush) -> dict:
           flush=True)
     kc = kernel_cases(inp)
     print(f"  probe: window of {kc.plan.span} rows (the whole table), "
-          f"{int(kc.plan.out_span.sum())} queries out of span, "
           f"{kc.hit_frac:.3f} of positions hit; {probe_line(kc.probe, bd)}",
           flush=True)
     library = {"masks_to_bytes":
@@ -2108,12 +2107,13 @@ def intros_phase(work: str, card: str):
         print(f"  {k:28s} {v:.3f}", flush=True)
 
 
-# the kernels of each mesh strategy's path: the range strategy's local
-# probe is a row gather at the low-bit bucket (panagram_tpu's _local_probe
-# is an XLA gather), so probe_sorted runs only in the genome strategy
-MESH_KERNELS = {"range": ["pack_mix", "fused_popcount_colsums",
-                          "masks_to_bytes"],
-                "genomes": ANCHOR_KERNELS}
+# the kernels of each mesh strategy's path: every rank packs its codes on
+# its device (pack_bases); the range strategy's local probe is a row gather
+# at the low-bit bucket (panagram_tpu's _local_probe is an XLA gather), so
+# probe_sorted runs only in the genome strategy
+MESH_KERNELS = {"range": ["pack_bases", "pack_mix",
+                          "fused_popcount_colsums", "masks_to_bytes"],
+                "genomes": STREAM_KERNELS}
 # the phases a mesh rank's anchor log line names, in order
 MESH_PHASES = ["encode", "pack", "wait", "write", "bins", "finish"]
 
@@ -2151,7 +2151,7 @@ def mesh_phase(work: str, card: str, dev, slice_peak: int) -> dict:
         print(f"index --mesh 1 --mesh-strategy {strategy}: {wall:.2f} s "
               f"wall (one spawned rank), rank 0 launches {launches}",
               flush=True)
-        for name in ANCHOR_KERNELS:
+        for name in STREAM_KERNELS:
             want = chunks if name in MESH_KERNELS[strategy] else 0
             if launches[name] != want:
                 raise AssertionError(
@@ -2173,7 +2173,7 @@ def mesh_phase(work: str, card: str, dev, slice_peak: int) -> dict:
                          ["dict"] + [f"anchor.{a}" for a in ANCHORS]),
               flush=True)
         for a, ph in anchor_phases(prefix, ANCHORS).items():
-            # the mesh route times the host's packing and keeps no
+            # the mesh route times the host's staging and keeps no
             # copy-back apart: its line names no phase nobody timed
             if list(ph) != MESH_PHASES or not ph["pack"] > 0:
                 raise AssertionError(f"--mesh 1 {strategy} {a}: anchor "
@@ -2278,8 +2278,8 @@ def bigdict_mesh_phase(card: str):
         chunks = -(-r.nk // (devices * BM.CHUNK_PER_DEV))
         for rank, launches in enumerate(r.launches):
             want = {n: chunks if device == "cuda" and n in
-                    MESH_KERNELS["range"] else 0 for n in ANCHOR_KERNELS}
-            got = {n: launches[n] for n in ANCHOR_KERNELS}
+                    MESH_KERNELS["range"] else 0 for n in STREAM_KERNELS}
+            got = {n: launches[n] for n in STREAM_KERNELS}
             if got != want:
                 raise AssertionError(f"bigdict_mesh {label}: rank {rank} "
                                      f"launched {got}, not {want}")

@@ -185,7 +185,7 @@ def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int,
     views of reused buffers, valid until the next item is requested.
 
     Each chunk's m + k - 1 codes are copied into a pinned staging slot of
-    chunk + k - 1 bytes and uploaded; kernels.pack_bases packs them on the
+    chunk + k - 1 bytes and uploaded; kernels.pack_chunk packs them on the
     device (bases past them, up to chunk + k - 1, count as not ACGT), and
     the device codes are freed before the chunk's kernels run.  `buf`, the
     host staging array of panagram_tpu's host packing, and `state` and
@@ -214,7 +214,6 @@ def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int,
         device = table.device
         cuda = device.type == "cuda"
         L = chunk + k - 1
-        n4 = (L + 3) // 4
         Ppad = -(-chunk // TILE_Q) * TILE_Q
         slots = [_Slot(L, Ppad, nbytes, 32 * bd.nwords, cuda)
                  for _ in range(PIPELINE_DEPTH)]
@@ -225,13 +224,12 @@ def stream_anchor_chunks(codes: np.ndarray, nkmers: int, chunk: int,
 
     def launch(slot: _Slot, nvalid: int):
         codes_d = slot.inbuf[:nvalid].to(device, non_blocking=True)
-        ib = torch.empty(n4 + (L + 7) // 8, dtype=torch.uint8, device=device)
-        kernels.pack_bases(codes_d, nvalid, L, ib)
+        packed, nmask = kernels.pack_chunk(codes_d, L)
         # not live during the probe's sort, where the chunk's peak is
         del codes_d
-        by, popc, colsums = _anchor_chunk_padded(ib[:n4], ib[n4:], L, k,
-                                                 table, bd.nbits, bd.cap,
-                                                 bd.nwords, nbytes)
+        by, popc, colsums = _anchor_chunk_padded(packed, nmask, L, k, table,
+                                                 bd.nbits, bd.cap, bd.nwords,
+                                                 nbytes)
         with spans.span("anchor.copyback", device=cuda, phase=phase,
                         key="copy"):
             slot.by.copy_(by, non_blocking=True)

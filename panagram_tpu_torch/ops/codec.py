@@ -81,6 +81,20 @@ def from_u64_np(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int64)).to(device)
 
 
+def upload_codes(codes: np.ndarray, device) -> torch.Tensor:
+    """numpy uint8 codes -> uint8 tensor on `device`.  On a CUDA device
+    through a page-locked block of torch's caching host allocator and a
+    copy that does not wait for the card's queued work (the allocator
+    reuses the block once the copy is done); elsewhere a tensor over the
+    array itself."""
+    codes = np.ascontiguousarray(codes, np.uint8)
+    if torch.device(device).type != "cuda":
+        return torch.from_numpy(codes).to(device)
+    host = torch.empty(len(codes), dtype=torch.uint8, pin_memory=True)
+    host.numpy()[:] = codes
+    return host.to(device, non_blocking=True)
+
+
 def flip64(x: torch.Tensor) -> torch.Tensor:
     """int64 u64 patterns -> int64 whose signed order is the unsigned order
     of x (the map is its own inverse)."""

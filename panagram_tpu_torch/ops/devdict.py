@@ -44,6 +44,7 @@ from .codec import (
     sort_u64,
     to_i32,
     u64_np,
+    upload_codes,
 )
 from .lookup import BucketedDict, check_device_budget, mix64_np
 
@@ -62,7 +63,7 @@ def _sort_dedup(s: torch.Tensor) -> torch.Tensor:
 
 def _chunk_mixed_distinct(packed: torch.Tensor, nmask: torch.Tensor, L: int,
                           k: int) -> torch.Tensor:
-    """packed/nmask (codec.pack_bases_np's layout, on the device) of L
+    """packed/nmask (kernels.pack_chunk's views, on the device) of L
     bases -> the sorted distinct mixed keys of its L - k + 1 windows,
     SENTINEL-padded to that length.  The pack_mix kernel gives each
     window's mixed pair; a window with an N gives mix64(SENTINEL), which no
@@ -191,23 +192,12 @@ class DeviceDictBuilder:
                 masks = torch.cat([self.masks, masks])
             self.keys, self.masks = keys, masks
 
-    def _upload(self, codes: np.ndarray) -> torch.Tensor:
-        """codes (uint8) on the device: through a pinned staging block and
-        a copy that does not wait for the card's queued work on a CUDA
-        device (torch's host allocator reuses the block once the copy is
-        done), as they are on the CPU."""
-        if not self._cuda:
-            return torch.from_numpy(codes)
-        host = torch.empty(len(codes), dtype=torch.uint8, pin_memory=True)
-        host.numpy()[:] = codes
-        return host.to(self.device, non_blocking=True)
-
     def add_sequence(self, gid: int, codes: np.ndarray):
         """Stream one sequence of genome `gid` (uint8 codes) into the dict.
-        Each chunk's codes go to the device as they are, and
-        kernels.pack_bases packs them there into codec.pack_bases_np's
-        layout of chunk + k - 1 bases (those past the chunk's own count as
-        not ACGT, so their windows give SENTINEL)."""
+        Each chunk's codes go to the device as they are (codec.upload_codes),
+        and kernels.pack_chunk packs them there as chunk + k - 1 bases
+        (those past the chunk's own count as not ACGT, so their windows give
+        SENTINEL)."""
         k = self.k
         n = len(codes) - k + 1
         if n <= 0:
@@ -218,19 +208,15 @@ class DeviceDictBuilder:
         codes = np.ascontiguousarray(codes, np.uint8)
         chunk = min(self.chunk, n)
         L = chunk + k - 1
-        n4 = (L + 3) // 4
         for start in range(0, n, chunk):
             m = min(chunk, n - start)
             with spans.span("devdict.pack", phase=self.walls, key="pack"):
-                nvalid = m + k - 1
-                codes_d = self._upload(codes[start:start + nvalid])
-                ib = torch.empty(n4 + (L + 7) // 8, dtype=torch.uint8,
-                                 device=self.device)
-                kernels.pack_bases(codes_d, nvalid, L, ib)
+                codes_d = upload_codes(codes[start:start + m + k - 1],
+                                       self.device)
+                packed, nmask = kernels.pack_chunk(codes_d, L)
             with spans.span("devdict.chunk", device=self._cuda,
                             phase=self.walls, key="chunk_dispatch"):
-                self._buf.append(_chunk_mixed_distinct(ib[:n4], ib[n4:], L,
-                                                       k))
+                self._buf.append(_chunk_mixed_distinct(packed, nmask, L, k))
             spans.count("devdict.positions", m)
             self._buf_real += m
             if len(self._buf) >= self.FLUSH_CHUNKS:

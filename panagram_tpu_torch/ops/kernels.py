@@ -2,8 +2,10 @@
 
 Each wrapper here but pack_bases replaces one Pallas TPU kernel: the four
 of the anchor chunk in ``panagram_tpu/ops/pallas_kernels.py``, and the
-capability probe of ``tools/mosaic_probe.py``.  pack_bases packs the anchor
-stream's bases on the card, where panagram_tpu packs them on the host:
+capability probe of ``tools/mosaic_probe.py``.  pack_bases (through
+pack_chunk) packs a chunk's bases on the card for the anchor stream, the
+device-dict builder and the mesh ranks, where panagram_tpu packs them on
+the host:
 
 =========================  ===============================  ==================
 wrapper                    TPU kernel                       CUDA source
@@ -181,6 +183,17 @@ def pack_bases(codes: torch.Tensor, nvalid: int, L: int,
                                   _stream(dev))
         _launched("pack_bases", rc, dev)
     return out
+
+
+def pack_chunk(codes: torch.Tensor, L: int):
+    """A chunk's codes uint8 [nvalid] (nvalid <= L, on the device) -> the
+    views (packed uint8 [ceil(L/4)], nmask uint8 [ceil(L/8)]) of one new
+    buffer that pack_bases fills with codec.pack_bases_np's layout of L
+    bases; those past the codes count as not ACGT."""
+    n4 = -(-L // 4)
+    out = torch.empty(n4 + -(-L // 8), dtype=torch.uint8, device=codes.device)
+    pack_bases(codes, codes.numel(), L, out)
+    return out[:n4], out[n4:]
 
 
 def pack_bases_plain(codes, nvalid: int, L: int, out) -> torch.Tensor:

@@ -25,16 +25,13 @@ Two probes return the same rows, each under panagram_tpu's name and
 contract over canonical (or, with pre_mixed, mixed) keys:
 
 * ``bucket_query`` gathers each query's bucket row (plain torch; over split
-  mixed pairs, ``bucket_query_pairs`` is the fixup and fallback of the
-  merge probe);
+  mixed pairs, ``bucket_query_pairs``): the probe's reference;
 * ``bucket_query_sorted`` and, over split mixed pairs in any order,
-  ``bucket_query_sorted_pre`` sort the queries by their high word, so each
-  tile of TILE_Q queries reads a narrow window of table rows, and runs the
-  ``probe_sorted`` kernel (ops/kernels.py).  Queries whose bucket lies
-  outside their tile's window (only with a window narrower than the
-  default, see plan_probe) are fixed up by the gather probe, and when there
-  are too many of those the whole batch takes the gather probe, so the
-  result is exact under any key skew.
+  ``bucket_query_sorted_pre`` sort the queries by their high word and run
+  the ``probe_sorted`` kernel (ops/kernels.py) with one window, the whole
+  table, for every tile of TILE_Q queries.  Every query reads its own
+  bucket's row, so the result is exact under any key skew, and nothing
+  comes back to the host.
 """
 
 from __future__ import annotations
@@ -69,7 +66,7 @@ _SENTINEL32 = np.uint32(0xFFFFFFFF)
 # queries per merge-probe tile (the unit that shares one window of rows)
 TILE_Q = 1024
 # device memory kept free beside the table for the anchor chunk's buffers
-# (a 2^22-position chunk's sort, probe and the gather fallback's row copy)
+# (a 2^22-position chunk's sort and probe)
 ANCHOR_RESERVE_BYTES = 3 << 30
 # sorted rows per pass of the chunked device layout (its transients scale
 # with this bound; panagram_tpu's PANAGRAM_TPU_LAYOUT_PIECE_ROWS default)
@@ -683,23 +680,20 @@ def bucket_query(canon: torch.Tensor, table, nbits: int, cap: int,
 
 
 def bucket_query_sorted(canon: torch.Tensor, table, nbits: int, cap: int,
-                        nwords: int, pre_mixed: bool = False, *,
-                        span: int | None = None,
-                        tile_q: int = TILE_Q) -> torch.Tensor:
+                        nwords: int, pre_mixed: bool = False) -> torch.Tensor:
     """panagram_tpu's merge probe, the rows of bucket_query: mix the keys,
-    pad them to a multiple of tile_q with all-ones pairs (which never
+    pad them to a multiple of TILE_Q with all-ones pairs (which never
     match), then bucket_query_sorted_pre, whose probe is the probe_sorted
     kernel on a CUDA device."""
     mhi, mlo = _mixed_pairs(canon, pre_mixed, table)
     Q0 = mhi.shape[0]
-    pad = -Q0 % tile_q
+    pad = -Q0 % TILE_Q
     if pad:
         ones = mhi.new_full((pad,), -1)
         mhi, mlo = torch.cat([mhi, ones]), torch.cat([mlo, ones])
     return bucket_query_sorted_pre(mhi, mlo, None,
                                    plain_table(table, nbits, mhi.device),
-                                   nbits, cap, nwords, Q0, span=span,
-                                   tile_q=tile_q)
+                                   nbits, cap, nwords, Q0)
 
 
 @dataclasses.dataclass
@@ -712,92 +706,55 @@ class ProbePlan:
     blo: torch.Tensor      # int32 [Qp / tile_q]: first table row per tile
     span: int              # table rows per tile window
     tile_q: int
-    nbits: int
-
-    @property
-    def out_span(self) -> torch.Tensor:
-        """bool [Qp]: query outside its tile's window.  All-ones pairs
-        never match, so they are exempt from the window."""
-        brow = bucket_row(self.qhi, self.nbits)
-        is_pad = (self.qhi == -1) & (self.qlo == -1)
-        first = self.blo.to(torch.int64).repeat_interleave(self.tile_q)
-        return ~(((brow - first) < self.span) | is_pad)
 
 
-def plan_probe(mhi0: torch.Tensor, mlo0: torch.Tensor, nbits: int,
-               span: int | None = None, tile_q: int = TILE_Q) -> ProbePlan:
+def plan_probe(mhi0: torch.Tensor, mlo0: torch.Tensor,
+               nbits: int) -> ProbePlan:
     """Sort the queries on their hi word (as u32; ties need no order, the
-    probe compares the full pair) and place each tile's window.
-
-    By default the window is the whole table, so every query reads its own
-    bucket row and none is out of span.  The TPU kernel copied the window
-    into its 4 MB VMEM and so had to cap it (1.5x the mean range, leaving a
-    tail for the fixup); this kernel reads rows straight from device
-    memory, where a wider window costs nothing.  That also keeps the fast
-    path under skew, such as the many identical N-window queries of a gappy
-    assembly, and it needs no look at the data: the default route queues
-    its work without waiting for the device.  An explicit `span` narrows
-    the window around each tile's first bucket (the tests use it to reach
-    the fixup)."""
-    B = 1 << nbits
+    probe compares the full pair) and give every tile of TILE_Q queries the
+    whole table as its window, so every query reads its own bucket row.
+    The TPU kernel copied a window into its 4 MB VMEM and so had to cap it,
+    leaving queries outside it for a gather fixup; this kernel reads rows
+    straight from device memory, where the whole table costs nothing more.
+    That holds under any skew, such as the many identical N-window queries
+    of a gappy assembly, and needs no look at the data: the probe queues
+    its work without waiting for the device."""
     Qp = mhi0.shape[0]
-    if Qp % tile_q:
-        raise ValueError(f"query count {Qp} is not a multiple of {tile_q}")
+    if Qp % TILE_Q:
+        raise ValueError(f"query count {Qp} is not a multiple of {TILE_Q}")
     # signed order of (hi ^ 0x80000000) is the unsigned order of hi
     _, perm = torch.sort(mhi0 ^ torch.iinfo(torch.int32).min)
-    qhi = mhi0[perm]
-    qlo = mlo0[perm]
-    if span is None:
-        blo = torch.zeros(Qp // tile_q, dtype=torch.int32, device=qhi.device)
-        return ProbePlan(qhi, qlo, perm, blo, B, tile_q, nbits)
-    span = min(max(span, 1), B)
-    blo = torch.clamp(bucket_row(qhi[::tile_q], nbits), 0, B - span)
-    return ProbePlan(qhi, qlo, perm, blo.to(torch.int32), span, tile_q, nbits)
+    qhi, qlo = mhi0[perm], mlo0[perm]
+    blo = torch.zeros(Qp // TILE_Q, dtype=torch.int32, device=qhi.device)
+    return ProbePlan(qhi, qlo, perm, blo, 1 << nbits, TILE_Q)
 
 
 def bucket_query_sorted_pre(mhi0: torch.Tensor, mlo0: torch.Tensor,
                             pos, table: torch.Tensor, nbits: int, cap: int,
-                            nwords: int, out_len: int, *,
-                            span: int | None = None,
-                            tile_q: int = TILE_Q) -> torch.Tensor:
+                            nwords: int, out_len: int) -> torch.Tensor:
     """Merge probe of mixed query pairs in any order: mhi0/mlo0 int32 [Qp]
-    (all-ones pairs are padding; Qp % tile_q == 0) -> mask rows int32
+    (all-ones pairs are padding; Qp % TILE_Q == 0) -> mask rows int32
     [out_len, W].  pos, as in panagram_tpu, is each element's output row:
     an integer tensor [Qp] holding each row of [0, out_len) once, and pad
     elements at rows >= out_len, which are dropped.  pos=None is the
     positional order (element i answers row i) without building it: the
-    inverse permutation is then one scatter.  With the default window no
-    value comes back to the host; an explicit `span` counts the queries
-    out of their windows and fixes them up, or falls back."""
-    Qp = mhi0.shape[0]
-    plan = plan_probe(mhi0, mlo0, nbits, span, tile_q)
-    idx_out = None
-    if span is not None:
-        idx_out = torch.nonzero(plan.out_span).squeeze(1)
-        if idx_out.shape[0] > max(Qp >> 6, tile_q):
-            rows = bucket_query_pairs(mhi0, mlo0, table, nbits, cap, nwords)
-            return _to_rows(rows, None, pos, out_len)
+    inverse permutation is then one scatter.  No value comes back to the
+    host."""
+    plan = plan_probe(mhi0, mlo0, nbits)
     rows = kernels.probe_sorted(plan.qhi, plan.qlo, plan.blo, table, nbits,
                                 cap, nwords, plan.span, plan.tile_q)
-    if idx_out is not None and idx_out.shape[0]:
-        rows[idx_out] = bucket_query_pairs(plan.qhi[idx_out],
-                                           plan.qlo[idx_out], table, nbits,
-                                           cap, nwords)
     return _to_rows(rows, plan.perm, pos, out_len)
 
 
 def _to_rows(rows: torch.Tensor, perm, pos, out_len: int) -> torch.Tensor:
     """Scatter rows [Qp, W] to their output rows: element j of `rows` is
-    input element perm[j] (perm None: element j), whose row is pos[that]
-    (pos None: the element's own index).  One scatter; rows >= out_len go
-    to a dropped row."""
+    input element perm[j], whose row is pos[that] (pos None: the element's
+    own index).  One scatter; rows >= out_len go to a dropped row."""
     if pos is None:
-        if perm is None:
-            return rows[:out_len]
         out = torch.empty_like(rows)
         out[perm] = rows      # inverse permutation
         return out[:out_len]
-    tgt = pos.to(torch.int64) if perm is None else pos.to(torch.int64)[perm]
+    tgt = pos.to(torch.int64)[perm]
     tgt = torch.clamp(tgt, max=out_len)
     out = rows.new_empty(out_len + 1, rows.shape[1])
     out[tgt] = rows

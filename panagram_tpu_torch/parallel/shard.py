@@ -10,13 +10,15 @@ Two strategies:
   ops/lookup.layout_rows on the rank's device.  The build routes (key,
   genome) pairs to their owners with an all_to_all and merges them there
   into presence masks; anchoring is sequence-sharded: each rank packs its
-  halo'd slice of a chunk (pack_mix kernel), routes the queries to their
-  owners, which probe their tables with one row gather each, routes the
-  mask rows back and runs the popcount and byte kernels on its rows.
+  halo'd slice of a chunk on its device (pack_bases, pack_mix), routes the
+  queries to their owners, which probe their tables with one row gather
+  each, routes the mask rows back and runs the popcount and byte kernels
+  on its rows.
 * **genomes** (GenomeShardedDict): every rank holds all keys but only its
   slice of the mask words, in the standard top-bits table; every rank
-  anchors the whole chunk against its slice (pack_mix, probe_sorted) and
-  the byte slices are concatenated in rank order.
+  anchors the whole chunk against its slice (pack_bases and the
+  one-device dense chunk) and the byte slices are concatenated in rank
+  order.
 
 The all_to_alls send the row counts first and then exactly the rows
 (``mesh.all_to_all``), where panagram_tpu's fixed [S, C] buffers send S
@@ -41,15 +43,14 @@ from ..ops.codec import (
     flip64,
     from_u64_np,
     mix64,
-    pack_bases_np,
     split64,
     u32,
     u64_np,
+    upload_codes,
 )
+from ..ops.anchor import _anchor_chunk_padded
 from ..ops.dictionary import PanKmerDict, _merge_sets, merge_sets_bytes
 from ..ops.lookup import (
-    TILE_Q,
-    bucket_query_sorted_pre,
     check_device_budget,
     layout_bytes,
     layout_rows,
@@ -317,37 +318,23 @@ def make_halo_chunks(codes: np.ndarray, n_shards: int, k: int,
     return out, nk
 
 
-def _pack(codes: np.ndarray, phase: dict | None = None):
-    """pack_bases_np of a rank's codes; `phase`, when given, gains the
-    host's seconds under "pack"."""
-    t0 = time.perf_counter()
-    packed = pack_bases_np(codes)
-    if phase is not None:
-        phase["pack"] += time.perf_counter() - t0
-    return packed
-
-
-def _upload(packed: np.ndarray, nmask: np.ndarray, device):
-    return (torch.from_numpy(packed).to(device),
-            torch.from_numpy(nmask).to(device))
-
-
 def sharded_anchor_chunk(mesh: Mesh, sbd: ShardedBucketedDict,
                          codes_slice: np.ndarray):
     """This rank's part of one range-sharded anchor chunk.  codes_slice u8
     [C + k - 1] is the rank's halo'd slice (make_halo_chunks).  Returns
     (bytes uint8 [C, nbytes], popc int32 [C], colsums int32 [32W]) of its C
     positions, on its device; every rank must call it for the chunk."""
-    return _sharded_rows(mesh, sbd, *_pack(codes_slice))
+    return _sharded_rows(mesh, sbd, upload_codes(codes_slice, mesh.device),
+                         len(codes_slice))
 
 
-def _sharded_rows(mesh: Mesh, sbd: ShardedBucketedDict, packed, nmask,
+def _sharded_rows(mesh: Mesh, sbd: ShardedBucketedDict, codes: torch.Tensor,
                   L: int):
-    """sharded_anchor_chunk of the rank's slice packed on the host."""
+    """sharded_anchor_chunk of the rank's codes on its device, packed there
+    (kernels.pack_chunk) as L bases."""
     k, W = sbd.k, sbd.nwords
-    p, n = _upload(packed, nmask, mesh.device)
     C = L - k + 1
-    hi, lo = kernels.pack_mix(p, n, L, k, C)
+    hi, lo = kernels.pack_mix(*kernels.pack_chunk(codes, L), L, k, C)
     m = (u32(hi) << 32) | u32(lo)
     order, counts = _by_owner(m, mesh.size)
     q, recv = all_to_all(mesh, m[order], counts)
@@ -399,21 +386,19 @@ def genome_sharded_anchor_chunk(mesh: Mesh, gsd: GenomeShardedDict,
     Returns (byte slice uint8 [C, 4 * nwords_local], popc int32 [C] summed
     over the ranks, colsums int32 [32 * nwords_local] of the slice's
     genomes), on its device; every rank must call it for the chunk."""
-    return _genome_sharded_rows(mesh, gsd, *_pack(codes))
+    return _genome_sharded_rows(mesh, gsd, upload_codes(codes, mesh.device),
+                                len(codes))
 
 
-def _genome_sharded_rows(mesh: Mesh, gsd: GenomeShardedDict, packed, nmask,
-                         L: int):
-    """genome_sharded_anchor_chunk of the chunk packed on the host."""
-    k, Wl = gsd.k, gsd.nwords_local
-    p, n = _upload(packed, nmask, mesh.device)
-    C = L - k + 1
-    Ppad = -(-C // TILE_Q) * TILE_Q
-    hi, lo = kernels.pack_mix(p, n, L, k, Ppad)
-    rows = bucket_query_sorted_pre(hi, lo, None, gsd.table, gsd.nbits,
-                                   gsd.cap, Wl, C)
-    popc, colsums = kernels.fused_popcount_colsums(rows, 32 * Wl)
-    return kernels.masks_to_bytes(rows, 4 * Wl), all_sum(mesh, popc), colsums
+def _genome_sharded_rows(mesh: Mesh, gsd: GenomeShardedDict,
+                         codes: torch.Tensor, L: int):
+    """genome_sharded_anchor_chunk of the chunk's codes on the rank's
+    device, packed there (kernels.pack_chunk) as L bases."""
+    C = L - gsd.k + 1
+    by, popc, colsums = _anchor_chunk_padded(
+        *kernels.pack_chunk(codes, L), L, gsd.k, gsd.table, gsd.nbits,
+        gsd.cap, gsd.nwords_local, 4 * gsd.nwords_local)
+    return by[:C], all_sum(mesh, popc)[:C], colsums
 
 
 def assemble_genome_shards(by_shards: np.ndarray, nbytes: int) -> np.ndarray:
@@ -437,34 +422,31 @@ def stream_mesh_chunks(mesh: Mesh, sharded, codes: np.ndarray, nkmers: int,
     ranks of the writer's process, gathered within the process, for a
     piece writer.
 
-    `phase`, when given, gains seconds under "pack": the host filling the
-    chunk's buffer (or the rank's halo'd slice) and packing it, as
-    stream_anchor_chunks counts it.  The results come back through
-    collectives and blocking copies, so no copy-back time of the card's is
-    kept apart."""
+    `phase`, when given, gains seconds under "pack": the host staging the
+    rank's codes (its halo'd slice cut out, the upload enqueued), as
+    stream_anchor_chunks counts its staging; the rank's device packs them.
+    The results come back through collectives and blocking copies, so no
+    copy-back time of the card's is kept apart."""
     phase = {} if phase is None else phase
     phase.setdefault("pack", 0.0)
     S = mesh.size
     genomes = isinstance(sharded, GenomeShardedDict)
     C = chunk if genomes else -(-chunk // S)
-    buf = np.full(chunk + k - 1, 255, np.uint8)
     for start in range(0, nkmers, chunk):
         m = min(chunk, nkmers - start)
         t0 = time.perf_counter()
+        mine = codes[start:start + m + k - 1]
+        if not genomes:
+            mine = make_halo_chunks(mine, S, k, C)[0][mesh.rank]
+        mine = upload_codes(mine, mesh.device)
+        phase["pack"] += time.perf_counter() - t0
+        # packed as C + k - 1 bases: those past a short chunk count as N
+        rows = _genome_sharded_rows if genomes else _sharded_rows
+        by, popc, colsums = rows(mesh, sharded, mine, C + k - 1)
         if genomes:
-            buf[:] = 255
-            buf[:m + k - 1] = codes[start:start + m + k - 1]
-            phase["pack"] += time.perf_counter() - t0
-            by, popc, colsums = _genome_sharded_rows(
-                mesh, sharded, *_pack(buf, phase))
             bys = gather_to_writers(mesh, by)
             colsums = gather_to_writers(mesh, colsums)
         else:
-            halo, _ = make_halo_chunks(codes[start:start + m + k - 1], S, k,
-                                       C)
-            phase["pack"] += time.perf_counter() - t0
-            by, popc, colsums = _sharded_rows(
-                mesh, sharded, *_pack(halo[mesh.rank], phase))
             popc = gather_to_writers(mesh, popc)
             all_sum(mesh, colsums)
             bys = gather_to_writers(mesh, by, local=pieces)

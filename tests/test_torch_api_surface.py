@@ -52,7 +52,8 @@ LEDGER = {
     # ops/pallas_kernels.py: the Pallas kernels and their switches
     "ops/pallas_kernels.py:TILE": (PALLAS, None),
     "ops/pallas_kernels.py:TILE_Q": (PALLAS, "ops/lookup.TILE_Q"),
-    "ops/pallas_kernels.py:SPAN": (PALLAS, "ops/lookup.plan_probe(span=)"),
+    "ops/pallas_kernels.py:SPAN": (
+        PALLAS, "none needed: probe_sorted reads the whole table"),
     "ops/pallas_kernels.py:pallas_enabled": (
         PALLAS, "none needed: a wrapper launches its kernel on a CUDA "
         "tensor"),

@@ -275,8 +275,8 @@ def test_probe_sorted_kernel_edges(cuda, W):
     """The probe_sorted kernel against its plain version on a table built
     to its edges: hits at slot cap - 1 of full rows and misses on them (no
     empty slot ends the scan), keys whose hi or lo word alone is all ones, all-ones queries
-    against rows with empty slots, the default window and a window of 2
-    rows that leaves queries outside it; then a table view at an odd word
+    against rows with empty slots, the whole-table window and a window of
+    2 rows that leaves queries outside it; then a table view at an odd word
     (the scalar path) and outputs at an odd word (no vector store).  W=1
     and W=2 load 64-byte pieces of an aligned row; W=3-5 take the scalar
     path."""
@@ -289,14 +289,18 @@ def test_probe_sorted_kernel_edges(cuda, W):
     qh, ql = _edge_queries(rng, keys, nbits, tile_q)
     hi, lo = torch.from_numpy(qh).to(cuda), torch.from_numpy(ql).to(cuda)
     Q = hi.shape[0]
-    for span in (None, 2):
-        plan = plan_probe(hi, lo, nbits, span, tile_q)
-        args = (plan.qhi, plan.qlo, plan.blo, t, nbits, cap, W, plan.span,
+    order = torch.argsort(hi.to(torch.int64) & 0xFFFFFFFF)
+    qhi, qlo = hi[order], lo[order]
+    brow = lookup.bucket_row(qhi, nbits)
+    for span in (1 << nbits, 2):
+        # each tile's window starts at its first query's bucket row
+        blo = torch.clamp(brow[::tile_q], 0, (1 << nbits) - span)
+        args = (qhi, qlo, blo.to(torch.int32), t, nbits, cap, W, span,
                 tile_q)
         want = kernels.probe_sorted_plain(*args)
         assert want.any(dim=1).sum() > len(keys) // 2
-        if span is not None:
-            assert bool(plan.out_span.any())
+        first = blo.repeat_interleave(tile_q)
+        assert bool(((brow - first) >= span).any()) == (span == 2)
         before = kernels.launches["probe_sorted"]
         assert torch.equal(kernels.probe_sorted(*args), want)
         assert kernels.launches["probe_sorted"] == before + 1
@@ -448,7 +452,7 @@ def test_kernels_past_2_31_bytes(cuda):
 
 def test_anchor_chunk_matches_oracle(cuda):
     """The dense chunk through all four kernels equals the numpy oracle,
-    with a tight window so the out-of-span fixup runs."""
+    and its merge probe the gather probe."""
     rng = np.random.default_rng(5)
     L = (1 << 16) + K - 1
     codes = _chunk(rng, L)
@@ -470,17 +474,15 @@ def test_anchor_chunk_matches_oracle(cuda):
     hi, lo = kernels.pack_mix(torch.from_numpy(packed).to(cuda),
                               torch.from_numpy(nmask).to(cuda), L, K, 1 << 16)
     want = bucket_query_pairs(hi, lo, bd.table, bd.nbits, bd.cap, bd.nwords)
-    for span in (8, None):
-        got = bucket_query_sorted_pre(hi, lo, None, bd.table, bd.nbits,
-                                      bd.cap, bd.nwords, 1 << 16, span=span)
-        assert torch.equal(got, want)
+    got = bucket_query_sorted_pre(hi, lo, None, bd.table, bd.nbits, bd.cap,
+                                  bd.nwords, 1 << 16)
+    assert torch.equal(got, want)
 
 
 def test_default_probe_route_makes_no_host_sync(cuda):
-    """With the default window neither the merge probe nor the whole dense
-    chunk brings a value back to the host: torch's sync debug mode raises
-    on any synchronising call.  An explicit span does (it counts the
-    queries out of their windows), and gives the same rows."""
+    """Neither the merge probe nor the whole dense chunk brings a value
+    back to the host: torch's sync debug mode raises on any synchronising
+    call, as it does on a value read back."""
     rng = np.random.default_rng(6)
     L = (1 << 17) + K - 1
     codes = _chunk(rng, L)
@@ -501,16 +503,12 @@ def test_default_probe_route_makes_no_host_sync(cuda):
         out = anchor_chunk_fast(p, n, bd.table, L, K, bd.nbits, bd.cap,
                                 bd.nwords, 4)
         with pytest.raises(RuntimeError):
-            bucket_query_sorted_pre(hi, lo, None, bd.table, bd.nbits, bd.cap,
-                                    bd.nwords, 1 << 17, span=8)
+            int(hi[0])
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
-    narrow = bucket_query_sorted_pre(hi, lo, None, bd.table, bd.nbits,
-                                     bd.cap, bd.nwords, 1 << 17, span=8)
-    assert torch.equal(narrow, want)
 
 
 @pytest.mark.parametrize("trace", [False, True])

@@ -138,49 +138,70 @@ def test_bucket_table_and_gather_probe_match_jax(rng, ngenomes):
     assert np.array_equal(want, anchor_np(codes, K, d.keys, d.masks))
 
 
-def test_bucket_query_sorted_span_fixup_and_fallback(rng, monkeypatch):
-    """A tiny window pushes queries out of their tile's rows: a small tail
-    goes through the gather fixup, a large one routes the whole batch to
-    the gather fallback; both equal panagram_tpu's probe."""
+@pytest.fixture(scope="module")
+def skew_table():
+    """A 30-genome bucket table as panagram_tpu's device table and as the
+    port's, with its keys."""
+    rng = np.random.default_rng(8000)
     keys = np.unique(rng.integers(0, 1 << 62, 8000, dtype=np.uint64))
     masks = rng.integers(1, 1 << 31, (len(keys), 1)).astype(np.uint32)
     jbd = jl.BucketedDict.build(keys, masks, 30, 21)
     (jt,) = jbd.device_arrays()
     bd = lookup.BucketedDict.from_jax_state(
         np.asarray(jt), jbd.nbits, jbd.cap, jbd.stride, 30, 21, 1).to("cpu")
-    assert (1 << bd.nbits) > 8
+    return keys, jbd, jt, bd
 
-    calls = {"probe": 0}
-    real_probe = lookup.kernels.probe_sorted
 
-    def counting_probe(*a, **k):
-        calls["probe"] += 1
-        return real_probe(*a, **k)
+def _skewed_batch(case, keys, nbits, rng):
+    """Mixed u64 queries of one skewed batch, in no order."""
+    ones = np.uint64(0xFFFFFFFFFFFFFFFF)
+    hits = lookup.mix64_np(keys)
+    if case == "one_bucket":
+        # every query in the bucket of one key: the same top nbits, that
+        # bucket's own keys among them
+        top = hits[0] >> np.uint64(64 - nbits) << np.uint64(64 - nbits)
+        crowd = top | (rng.integers(0, 1 << 64, 3000, dtype=np.uint64)
+                       >> np.uint64(nbits))
+        same = hits[(hits >> np.uint64(64 - nbits))
+                    == (hits[0] >> np.uint64(64 - nbits))]
+        m = np.concatenate([crowd, np.repeat(same, 300)])
+    elif case == "n_windows":
+        # an assembly of gaps: all-ones pairs and the one mixed value every
+        # N window gets (mix64 of the all-ones key), a few hits between
+        m = np.concatenate([np.full(2000, ones),
+                            lookup.mix64_np(np.full(2500, ones)),
+                            hits[:40]])
+    elif case == "all_misses":
+        m = lookup.mix64_np(rng.integers(0, 1 << 62, 3500, dtype=np.uint64))
+        m = m[~np.isin(m, hits)]
+    else:
+        raise KeyError(case)
+    return rng.permutation(m)
 
-    monkeypatch.setattr(lookup.kernels, "probe_sorted", counting_probe)
 
-    for nhit, nmiss, fast in ((700, 100, True), (4000, 1000, False)):
-        q = np.concatenate([keys[:nhit],
-                            rng.integers(0, 1 << 62, nmiss, dtype=np.uint64)])
-        want = np.asarray(jl.bucket_query(jnp.asarray(q), jt, jbd.nbits,
-                                          jbd.cap, jbd.nwords))
-        Qp = -(-len(q) // 1024) * 1024
-        hi, lo = split64(mix64(from_u64_np(q, "cpu")))
-        pad = torch.full((Qp - len(q),), -1, dtype=torch.int32)
-        hi, lo = torch.cat([hi, pad]), torch.cat([lo, pad])
-        plan = lookup.plan_probe(hi, lo, bd.nbits, span=8)
-        assert int(plan.out_span.sum()) > 0
-        calls["probe"] = 0
-        got = lookup.bucket_query_sorted_pre(hi, lo, None, bd.table, bd.nbits,
-                                             bd.cap, bd.nwords, len(q), span=8)
-        assert calls["probe"] == (1 if fast else 0)
-        assert np.array_equal(got.numpy().view(np.uint32), want)
-        # the default window holds every query
-        assert int(lookup.plan_probe(hi, lo, bd.nbits).out_span.sum()) == 0
-        dflt = lookup.bucket_query_sorted_pre(hi, lo, None, bd.table,
-                                              bd.nbits, bd.cap, bd.nwords,
-                                              len(q))
-        assert np.array_equal(dflt.numpy().view(np.uint32), want)
+@pytest.mark.parametrize("case", ["one_bucket", "n_windows", "all_misses"])
+def test_bucket_query_sorted_pre_equals_gather_under_skew(skew_table, case):
+    """The merge probe, one window over the whole table, gives panagram_tpu's
+    gather probe row for row on a skewed batch (padded with all-ones pairs
+    to whole tiles), through positional rows and through a shuffled pos."""
+    keys, jbd, jt, bd = skew_table
+    rng = np.random.default_rng(len(case))
+    m = _skewed_batch(case, keys, bd.nbits, rng)
+    want = np.asarray(jl.bucket_query(jnp.asarray(m), jt, jbd.nbits, jbd.cap,
+                                      jbd.nwords, pre_mixed=True))
+    assert want.any() == (case != "all_misses")
+    Q0 = len(m)
+    Qp = -(-Q0 // lookup.TILE_Q) * lookup.TILE_Q
+    hi, lo = split64(from_u64_np(m, "cpu"))
+    pad = torch.full((Qp - Q0,), -1, dtype=torch.int32)
+    hi, lo = torch.cat([hi, pad]), torch.cat([lo, pad])
+    got = lookup.bucket_query_sorted_pre(hi, lo, None, bd.table, bd.nbits,
+                                         bd.cap, bd.nwords, Q0)
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+    perm = torch.from_numpy(rng.permutation(Qp))
+    got = lookup.bucket_query_sorted_pre(hi[perm], lo[perm], perm, bd.table,
+                                         bd.nbits, bd.cap, bd.nwords, Q0)
+    assert np.array_equal(got.numpy().view(np.uint32), want)
 
 
 @pytest.mark.parametrize("ngenomes", [3, 40])

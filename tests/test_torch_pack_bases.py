@@ -63,7 +63,8 @@ def test_pack_bases_plain_matches_pack_bases_np(L, cut):
 @pytest.mark.parametrize("nvalid", [0, 9, 23])
 def test_pack_bases_reads_nothing_past_nvalid(nvalid):
     """codes of only nvalid bytes (the stream uploads m + k - 1 of them)
-    pack as the same codes followed by junk would."""
+    pack as the same codes followed by junk would, through pack_bases and
+    through pack_chunk's two views."""
     rng = np.random.default_rng(nvalid)
     L = 40
     codes = _codes(rng, L)
@@ -71,6 +72,9 @@ def test_pack_bases_reads_nothing_past_nvalid(nvalid):
     out = torch.empty(10 + 5, dtype=torch.uint8)
     kernels.pack_bases(short, nvalid, L, out)
     assert np.array_equal(out.numpy(), _want(codes, nvalid, L))
+    packed, nmask = kernels.pack_chunk(short, L)
+    assert packed.shape == (10,) and nmask.shape == (5,)
+    assert np.array_equal(torch.cat([packed, nmask]).numpy(), out.numpy())
 
 
 @pytest.mark.parametrize("case", ["nvalid_past_L", "nvalid_past_codes",

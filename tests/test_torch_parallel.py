@@ -345,7 +345,7 @@ def test_mesh_anchor_phases_are_timed(tmp_path, monkeypatch, caplog,
                                      strategy):
     """The anchor-phase line of a Gloo mesh build (`--mesh 2 --device cpu`,
     1024 positions per chunk) names only phases the mesh route times: the
-    host's packing above 0, and no copy-back, which only the one-device
+    host's staging above 0, and no copy-back, which only the one-device
     stream keeps apart (its line names it, and it is above 0 there)."""
     from panagram_tpu_torch import index as port_index
     from panagram_tpu_torch.__main__ import main as port_main

@@ -104,15 +104,13 @@ def test_default_route_equals_gather_and_pallas_under_skew(tables, case,
     got = lookup.bucket_query_sorted_pre(hi, lo, None, bd.table, bd.nbits,
                                          bd.cap, bd.nwords, len(m))
     assert reads["n"] == 0
-    # the patch counts: an explicit window does read back
-    narrow = lookup.bucket_query_sorted_pre(hi, lo, None, bd.table, bd.nbits,
-                                            bd.cap, bd.nwords, len(m), span=8)
+    # the patch counts: a value read back does
+    int(hi[0])
     assert reads["n"] > 0
     monkeypatch.undo()
-    assert torch.equal(got, gather) and torch.equal(narrow, gather)
+    assert torch.equal(got, gather)
     plan = lookup.plan_probe(hi, lo, bd.nbits)
     assert plan.span == 1 << bd.nbits and not bool(plan.blo.any())
-    assert not bool(plan.out_span.any())
 
 
 @pytest.mark.parametrize("nbits", [31, 32])
